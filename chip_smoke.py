@@ -6,27 +6,46 @@
 Phases (one JSON line each; any failure ends the run with a non-zero
 exit, nothing is caught and skipped):
 
-  device   the card's name and power limit (nvidia-smi) and torch's name;
-  build    nvcc builds every kernel of the path from csrc/ (ptxas -v);
-  kernels  each kernel against its plain torch version on the card, at
-           the shapes the serving path gives it: outputs must be equal
-           element for element; CUDA-event times (median of >= 20) beside
-           the plain version's and the least time the card could take;
-  serve    the port's main path: ContinuousSearchService on the card with
-           its default CUDA join backend, 16 tenants of two structures in
-           slot groups of 8, level/L0 capacity 65536, max_new 8192, fixed
-           batches of 4096 edges of a seeded CAIDA-like stream; the
-           kernels' launch counters are zeroed just before and read just
-           after;
-  parity   the same service on the REF backend over a prefix of the same
-           stream: per-tenant match multisets, totals, current matches,
-           stats and every table leaf identical to the CUDA run's.
-  profile  torch.profiler over the last ticks of a second CUDA serve:
-           device time by kernel and the device's idle share.
+  device        the card's name and power limit (nvidia-smi) and torch's;
+  build         nvcc builds every kernel library from its csrc/ source,
+                one nvcc per source, all at once (ptxas -v lines);
+  kernel_cases  the compat-join pair kernel against its plain version at
+                the serving path's join shapes, over a slot group of 8
+                and at S = 1: outputs equal element for element;
+                CUDA-event times (median of 20) beside the plain
+                version's and the least time the card could take;
+  mask_cases    the mask entry point (core.join.compat_mask, the CUDA
+                mask kernel) at the same shapes: masks equal the plain
+                version's byte for byte, and each slot's first max_new
+                set bits are the pair kernel's pairs;
+  serve         the main path: ContinuousSearchService on the card with
+                its default CUDA join backend, 16 tenants of two
+                structures in slot groups of 8, level/L0 capacity 65536,
+                max_new 8192, fixed batches of 4096 edges of a seeded
+                CAIDA-like stream;
+  parity        the same service on the REF backend over a prefix of the
+                same stream: per-tenant match multisets, totals, current
+                matches, stats and every table leaf identical;
+  profile       torch.profiler over the last ticks of a second CUDA
+                serve: device time by kernel and the device's idle share;
+  embedding_bag_cases  the embedding_bag kernel against its plain
+                version (Wide&Deep's wide side at serve_p99/serve_bulk,
+                one general case), with F.embedding_bag's time beside it;
+  recsys_serve  Wide&Deep at its published config serving 20 batches
+                each of serve_p99 and serve_bulk; logits held against
+                the plain version; one top-100 retrieval of 1M;
+  segment_sum_cases  the segment_sum kernel against its plain version at
+                the GIN path's shapes on an ogbn-products-shaped graph,
+                with index_add_'s time beside it;
+  gin_infer     GIN (gin-tu, bf16) inference on that graph; logits held
+                against the plain-version forward.
 
-The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
-or without the repository beside this script, it exits non-zero and
-prints no result.
+Each path's kernel launch counter is zeroed just before the path is
+driven and read just after (serve, each mask case's entry-point call,
+recsys_serve, gin_infer).  Then a {"kernels": [...]} line, and the last
+line is {"ok": true, "device": {...}}.  Without a CUDA device, or
+without the repository beside this script, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -55,6 +74,19 @@ MAX_NEW = 8192
 BATCH = 4096
 SLOTS = 8
 REPS = 20                # timed runs per kernel case (median)
+# Simple float32 operations (an add) per second: 67 TFLOP/s counts an FMA
+# as two, so one add per lane-cycle is 33.5e12/s.
+FP32_ADDS_PER_S = 33.5e12
+# The substrate's paths: Wide&Deep's serving shapes (configs/registry.py
+# recsys_shapes) and retrieval; GIN at the ogbn-products shape
+# (gnn_shapes: 2,449,029 nodes; avg degree 25 as synth_products_like
+# draws it, 61,225,725 edges).
+WD_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
+WD_BATCHES = 20
+RETRIEVAL_CANDIDATES, RETRIEVAL_TOPK = 1_000_000, 100
+GIN_NODES, GIN_DEGREE = 2_449_029, 25
+GIN_FEAT, GIN_CLASSES = 100, 47
+GIN_FORWARDS = 3
 PROFILED_TICKS = 8
 DEVICE = "cuda"
 
@@ -71,6 +103,21 @@ N_HUBS = 5
 def _sync(torch) -> None:
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def _reset_peak(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2**30 \
+        if DEVICE == "cuda" else None
+
+
+def _free(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
 
 
 def emit(obj) -> None:
@@ -102,16 +149,31 @@ def phase_device(torch):
     return info
 
 
-def phase_build():
-    from repro_torch.kernels.compat_join import kernel as K
+KERNEL_SOURCES = {          # kernel module -> its CUDA source
+    "compat_join": "src/repro_torch/kernels/compat_join/csrc/compat_join.cu",
+    "embedding_bag":
+        "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+    "segment_reduce":
+        "src/repro_torch/kernels/segment_reduce/csrc/segment_reduce.cu",
+}
 
+
+def phase_build():
+    """Build every kernel library of the port, one nvcc per source, all
+    started together."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    sources = [Path(HERE, src) for src in KERNEL_SOURCES.values()]
     t0 = time.perf_counter()
-    path = K.build()
+    paths = _build.build(*sources)
     secs = time.perf_counter() - t0
-    ptxas = [ln for ln in K.build_log.splitlines() if ln.strip()]
-    emit({"phase": "build", "kernel": "compat_join",
-          "library": os.path.relpath(path, HERE), "seconds": secs,
-          "ptxas": ptxas})
+    emit({"phase": "build", "seconds": secs, "libraries": [
+        {"kernel": name, "library": os.path.relpath(path, HERE),
+         "ptxas": [ln for ln in _build.build_logs.get(src.name, "")
+                   .splitlines() if ln.strip()]}
+        for name, src, path in zip(KERNEL_SOURCES, sources, paths)]})
 
 
 # --------------------------------------------------------------------- #
@@ -147,15 +209,16 @@ def _table(rng, n_slots, rows, nv, ne, fill, n_vertices, t_hi):
     return bind, ets, valid
 
 
-def _join_cases(rng):
-    """The serving path's joins at full size (slot group of 8):
-    the level join (A 65536 per slot x the shared 4096-edge batch, with a
-    per-slot edge mask), L0 J1 (8192 delta rows x 65536) and L0 J2
-    (65536 x 8192 delta rows) of the two-chain structure; each with and
-    without a window, plus one overflow case."""
+def _join_cases(rng, s: int):
+    """The serving path's joins at full size, over ``s`` slots (a slot
+    group of 8, or S = 1 as a single query's tick has it): the level join
+    (A 65536 per slot x the shared 4096-edge batch, with a per-slot edge
+    mask), L0 J1 (8192 delta rows x 65536) and L0 J2 (65536 x 8192 delta
+    rows) of the two-chain structure; each with and without a window,
+    plus one overflow case."""
     import numpy as np
 
-    s, cap, d = SLOTS, LEVEL_CAP, MAX_NEW
+    cap, d = LEVEL_CAP, MAX_NEW
     windows = rng.integers(3000, 9000, s, dtype=np.int32)
     rel_level = np.array([[False, False], [True, False]])      # b == src
     trel_level = np.array([[-1]], np.int8)
@@ -191,14 +254,14 @@ def _join_cases(rng):
     return cases
 
 
-def _work(tensors, rel, trel, window, max_new, n_slots):
+def _work(tensors, rel, trel, window, out_bytes, n_slots):
     """(bytes, operations) the join needs on these inputs: each input
-    read once and each output written once; the predicate on every pair
-    of valid rows (the data decides which pairs need it)."""
+    read once and ``out_bytes`` of output written once; the predicate on
+    every pair of valid rows (the data decides which pairs need it)."""
     ba, ea, va, bb, eb, vb = tensors
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     nbytes += 0 if window is None else window.numel() * 4
-    nbytes += n_slots * (2 * max_new + 1) * 4
+    nbytes += out_bytes
     nva, nvb = rel.shape
     nea, neb = trel.shape
     per_pair = nva * nvb + int((trel != 0).sum()) + 1       # + valid AND
@@ -212,7 +275,18 @@ def _work(tensors, rel, trel, window, max_new, n_slots):
     return nbytes, pairs * per_pair
 
 
+def _bound(nbytes: float, nops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the compute rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def phase_kernels(torch, seed: int):
+    """The pair kernel against its plain version at the serving path's
+    join shapes: over a slot group of 8 (row 2 of the kernel table) and
+    at S = 1 (row 1, a single query's tick)."""
     import numpy as np
 
     from repro_torch.kernels.compat_join import ops, ref
@@ -221,7 +295,10 @@ def phase_kernels(torch, seed: int):
     dev = torch.device("cuda")
     results = []
     worst = 0
-    for name, (a, b, rel, trel), win, max_new in _join_cases(rng):
+    cases = [(SLOTS, "", c) for c in _join_cases(rng, SLOTS)]
+    cases += [(1, "s1_", c) for c in _join_cases(rng, 1)]
+    for n_slots, prefix, (name, (a, b, rel, trel), win, max_new) in cases:
+        name = prefix + name
         tensors = [torch.as_tensor(x, device=dev) for x in (*a, *b)]
         window = None if win is None else torch.as_tensor(win, device=dev)
         args = (*tensors, rel, trel, max_new, window)
@@ -239,25 +316,100 @@ def phase_kernels(torch, seed: int):
         ms = _time_ms(torch, lambda: ops.compat_join_pairs(*args), REPS)
         plain_ms = _time_ms(torch, lambda: ref.compat_join_pairs(*args),
                             REPS)
-        nbytes, nops = _work(tensors, rel, trel, window, max_new, SLOTS)
-        bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT_OPS_PER_S)
+        nbytes, nops = _work(tensors, rel, trel, window,
+                             n_slots * (2 * max_new + 1) * 4, n_slots)
+        bound_ms, bound_by = _bound(nbytes, nops, INT_OPS_PER_S)
         results.append({
-            "case": name, "slots": SLOTS,
+            "case": name, "slots": n_slots,
             "ca": tensors[0].shape[-2], "cb": tensors[3].shape[-2],
             "pairs_kept": int(got[2].sum()),
             "n_dropped": int(got[3].sum()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= nops / INT_OPS_PER_S else "operations"),
-            "bytes": nbytes, "operations": nops, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "operations": nops,
+            "max_abs_err": err,
         })
         worst = max(worst, err)
         del tensors, got, want
-    if not any(r["n_dropped"] for r in results):
-        fail("the overflow case dropped no pairs")
+    for prefix in ("", "s1_"):
+        if not any(r["n_dropped"] for r in results
+                   if r["case"] == prefix + "level_overflow"):
+            fail(f"the {prefix}level_overflow case dropped no pairs")
     emit({"phase": "kernel_cases", "kernel": "compat_join_pairs",
           "reps": REPS, "cases": results})
     return results, worst
+
+
+def phase_masks(torch, seed: int):
+    """The mask entry point ``core.join.compat_mask`` (device default:
+    the CUDA mask kernel) at the serving path's join shapes: the level,
+    L0 J1 and L0 J2 joins of a slot group of 8, with and without a
+    window, and one S = 1 level join (A 65536 x B 4096).  Each case is
+    one drive of the path, its launch count zeroed just before and read
+    just after.  The kernel's mask must equal the plain version's byte
+    for byte, and each slot's first ``max_new`` set bits in row-major
+    order must be the pair kernel's pairs, with ``n_dropped`` = (set
+    bits - max_new)+."""
+    import numpy as np
+
+    from repro_torch.core import join
+    from repro_torch.kernels.compat_join import ops, ref
+
+    rng = np.random.default_rng(seed + 1)
+    dev = torch.device(DEVICE)
+    cases = [(SLOTS, c) for c in _join_cases(rng, SLOTS)
+             if not c[0].endswith("overflow")]
+    s1 = next(c for c in _join_cases(rng, 1) if c[0] == "level_window")
+    cases.append((1, ("s1_level_window",) + s1[1:]))
+    results, launches = [], 0
+    for n_slots, (name, (a, b, rel, trel), win, max_new) in cases:
+        tensors = [torch.as_tensor(x, device=dev) for x in (*a, *b)]
+        window = None if win is None else torch.as_tensor(win, device=dev)
+        args = (*tensors, rel, trel, window)
+        ops.compat_mask.launches = 0              # one drive of the path
+        got = join.compat_mask(*tensors, rel, trel, window=window)
+        _sync(torch)
+        launches += ops.compat_mask.launches
+        if ops.compat_mask.launches != 1:
+            fail(f"mask case {name}: {ops.compat_mask.launches} launches")
+        want = ref.compat_mask(*args)
+        _sync(torch)
+        if got.dtype != torch.bool or got.shape != want.shape:
+            fail(f"mask case {name}: {got.dtype} {tuple(got.shape)} vs "
+                 f"{want.dtype} {tuple(want.shape)}")
+        n_diff = int((got != want).sum())
+        if n_diff:
+            fail(f"mask case {name}: {n_diff} mask bytes differ")
+        del want
+        pairs = ops.compat_join_pairs(*tensors, rel, trel, max_new, window)
+        set_bits = got.reshape(n_slots, -1).sum(dim=1)
+        for s in range(n_slots):
+            first = join.extract_pairs(got[s:s + 1], max_new)
+            for k, (x, y) in enumerate(zip(first, pairs)):
+                if not torch.equal(x[0], y[s]):
+                    fail(f"mask case {name} slot {s}: output {k} of the "
+                         "pair kernel != the mask's first set bits")
+        dropped = (set_bits - max_new).clamp(min=0).to(torch.int32)
+        if not torch.equal(dropped, pairs[3]):
+            fail(f"mask case {name}: n_dropped != (set bits - max_new)+")
+        del pairs
+        ms = _time_ms(torch, lambda: ops.compat_mask(*args), REPS)
+        plain_ms = _time_ms(torch, lambda: ref.compat_mask(*args), REPS)
+        nbytes, nops = _work(tensors, rel, trel, window, got.numel(),
+                             n_slots)
+        bound_ms, bound_by = _bound(nbytes, nops, INT_OPS_PER_S)
+        results.append({
+            "case": name, "slots": n_slots,
+            "ca": tensors[0].shape[-2], "cb": tensors[3].shape[-2],
+            "mask_bytes": got.numel(), "set_bits": int(set_bits.sum()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "operations": nops,
+            "max_abs_err": 0,
+        })
+        del tensors, got
+        _free(torch)
+    emit({"phase": "mask_cases", "kernel": "compat_mask", "reps": REPS,
+          "path_launches": launches, "cases": results})
+    return results, launches
 
 
 # --------------------------------------------------------------------- #
@@ -514,6 +666,362 @@ def phase_profile(torch, args, stream):
 
 
 # --------------------------------------------------------------------- #
+# substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
+# --------------------------------------------------------------------- #
+def _pctl(xs, q: float) -> float:
+    """Nearest-rank percentile of ``xs``."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _max_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+
+
+def phase_embedding_bag(torch, seed: int):
+    """The embedding_bag kernel against its plain version: the Wide&Deep
+    wide side at serve_p99 (512 bags x 16 ids) and serve_bulk (262,144 x
+    16) over the published wide table (4,000,000 x 1, float32), with
+    ``recsys_batch``'s ids (25% -1), and one general case (D = 32, 65,536
+    bags of 0-16 ids, 10% -1).  Float32 sums in another order: rtol 1e-5,
+    atol 1e-6.  Library yardstick: ``F.embedding_bag(mode="sum",
+    per_sample_weights=(ids >= 0))`` with bag offsets."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs.wide_deep import CONFIG as WD
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = torch.randn((WD.wide_vocab, 1), generator=gen,
+                       device=dev).mul_(0.01)
+    cases = []
+    for name, b in WD_SERVE:
+        nb = recsys_batch(0, b, WD.n_sparse, WD.vocab_per_field, WD.n_dense,
+                          WD.n_wide_crosses, seed=seed)
+        ids = torch.as_tensor(nb["wide_ids"].reshape(-1), device=dev)
+        bags = torch.arange(b, dtype=torch.int32, device=dev) \
+            .repeat_interleave(WD.n_wide_crosses)
+        cases.append(("wide_" + name, ids, bags, wide, b))
+    rng = np.random.default_rng(seed)
+    n_bags = 65536
+    sizes = rng.integers(0, 17, n_bags)                # 0 = an empty bag
+    bags = np.repeat(np.arange(n_bags, dtype=np.int32), sizes)
+    ids = rng.integers(0, WD.vocab_per_field, bags.size).astype(np.int32)
+    ids[rng.random(bags.size) < 0.1] = -1
+    table = torch.randn((WD.vocab_per_field, 32), generator=gen, device=dev)
+    cases.append(("general_d32", torch.as_tensor(ids, device=dev),
+                  torch.as_tensor(bags, device=dev), table, n_bags))
+    results = []
+    for name, ids, bags, table, n_bags in cases:
+        args = (ids, bags, table, n_bags)
+        got = ops.embedding_bag(*args)
+        want = ref.embedding_bag(*args)
+        _sync(torch)
+        err = _max_err(torch, got, want)
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            fail(f"embedding_bag case {name}: kernel != plain (max |err| "
+                 f"{err})")
+        offsets = torch.searchsorted(
+            bags, torch.arange(n_bags, dtype=torch.int32, device=dev))
+        lib_ids = ids.clamp(min=0).long()
+        weights = (ids >= 0).to(table.dtype)
+
+        def library():
+            return F.embedding_bag(lib_ids, table, offsets, mode="sum",
+                                   per_sample_weights=weights)
+
+        lib_err = _max_err(torch, library(), want)
+        ms = _time_ms(torch, lambda: ops.embedding_bag(*args), REPS)
+        plain_ms = _time_ms(torch, lambda: ref.embedding_bag(*args), REPS)
+        library_ms = _time_ms(torch, library, REPS)
+        valid = ids[ids >= 0]
+        row = table.shape[1] * table.element_size()
+        nbytes = 8 * ids.numel() + torch.unique(valid).numel() * row \
+            + n_bags * row
+        nops = valid.numel() * table.shape[1]
+        bound_ms, bound_by = _bound(nbytes, nops, FP32_ADDS_PER_S)
+        results.append({
+            "case": name, "n_bags": n_bags, "ids": ids.numel(),
+            "valid_ids": valid.numel(), "dim": table.shape[1],
+            "table_rows": table.shape[0], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "operations": nops,
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "tolerance": "rtol 1e-5, atol 1e-6"})
+    emit({"phase": "embedding_bag_cases", "kernel": "embedding_bag",
+          "reps": REPS, "cases": results})
+    return results
+
+
+def phase_recsys_serve(torch, seed: int):
+    """Wide&Deep serving at the published config (40 fields x 1,000,000
+    x 32 float32 tables, wide table 4,000,000, MLP 1024-512-256), random
+    weights from a seeded generator on the card: ``WD_BATCHES`` batches
+    each of serve_p99 and serve_bulk from ``recsys_batch``, host batch to
+    logits on the card per request.  The embedding_bag launch count is
+    zeroed just before and read just after.  The same batches through
+    the plain version must give the same logits (rtol 1e-5, atol 1e-6:
+    only the wide side's float32 sums differ).  Then one retrieval of the
+    top 100 of 1,000,000 candidates."""
+    from repro_torch.configs.wide_deep import CONFIG
+    from repro_torch.data.recsys import batch_to_device, recsys_batch
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models.recsys.wide_deep import WideDeep, retrieval_score
+
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    model = WideDeep(CONFIG, device=DEVICE, seed=seed)
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    if model.backend != "cuda":
+        fail(f"Wide&Deep's default backend is {model.backend}, not cuda")
+    host = {name: [recsys_batch(step, b, CONFIG.n_sparse,
+                                CONFIG.vocab_per_field, CONFIG.n_dense,
+                                CONFIG.n_wide_crosses, seed=seed)
+                   for step in range(WD_BATCHES)]
+            for name, b in WD_SERVE}
+    out = {"phase": "recsys_serve", "config": CONFIG.name,
+           "params_gib": sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 2**30,
+           "init_s": init_s, "batches_per_shape": WD_BATCHES}
+    logits = {}
+    with torch.inference_mode():
+        for name, _ in WD_SERVE:                    # warm-up, not counted
+            model(batch_to_device(host[name][-1], DEVICE))
+        _sync(torch)
+        ops.embedding_bag.launches = 0
+        for name, b in WD_SERVE:
+            lat, logits[name] = [], []
+            for nb in host[name]:
+                t0 = time.perf_counter()
+                y = model(batch_to_device(nb, DEVICE))
+                _sync(torch)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                logits[name].append(y)
+            out[name] = {"batch": b, "examples_per_s": b * len(lat)
+                         / (sum(lat) / 1e3), "latency_ms_p50": _pctl(lat, .5),
+                         "latency_ms_p99": _pctl(lat, .99),
+                         "latency_ms_max": max(lat)}
+        launches = ops.embedding_bag.launches
+        out["embedding_bag_launches"] = launches
+        if launches != len(WD_SERVE) * WD_BATCHES:
+            fail(f"Wide&Deep serving launched embedding_bag {launches} "
+                 f"times for {len(WD_SERVE) * WD_BATCHES} batches")
+        backend, model.backend = model.backend, "ref"
+        err = 0.0
+        for name, b in WD_SERVE:
+            for nb, y in zip(host[name], logits[name]):
+                want = model(batch_to_device(nb, DEVICE))
+                if y.shape != (b,) or not bool(torch.isfinite(y).all()):
+                    fail(f"Wide&Deep {name}: logits {tuple(y.shape)}, not "
+                         "finite or of the wrong shape")
+                err = max(err, _max_err(torch, y, want))
+                if not torch.allclose(y, want, rtol=1e-5, atol=1e-6):
+                    fail(f"Wide&Deep {name}: kernel logits != plain "
+                         f"(max |err| {err})")
+        model.backend = backend
+        out["logits_max_abs_err"] = err
+        del logits
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        cands = torch.randn((RETRIEVAL_CANDIDATES, CONFIG.embed_dim),
+                            generator=gen, device=DEVICE)
+        user = torch.randn((CONFIG.embed_dim,), generator=gen, device=DEVICE)
+        vals, idx = retrieval_score(user, cands, RETRIEVAL_TOPK)
+        want_idx = torch.argsort(cands @ user, descending=True)[:RETRIEVAL_TOPK]
+        if not torch.equal(idx, want_idx):
+            fail("retrieval_score's top-k != a full sort's")
+        out["retrieval"] = {
+            "candidates": RETRIEVAL_CANDIDATES, "top_k": RETRIEVAL_TOPK,
+            "ms": _time_ms(torch, lambda: retrieval_score(
+                user, cands, RETRIEVAL_TOPK), REPS)}
+    out["peak_mem_gib"] = _peak_gib(torch)
+    emit(out)
+    del model, cands
+    _free(torch)
+    return out, launches
+
+
+def make_products_graph(torch, seed: int):
+    """The ogbn-products-shaped graph (``synth_products_like``: Pareto
+    1.2 popularity, ``GIN_NODES`` nodes, ``GIN_DEGREE`` edges per node,
+    100 features, 47 classes), made on the host and moved to the card."""
+    from repro_torch.data.graphs import graph_to_device, synth_products_like
+
+    t0 = time.perf_counter()
+    g = synth_products_like(n_nodes=GIN_NODES, avg_degree=GIN_DEGREE,
+                            d_feat=GIN_FEAT, n_classes=GIN_CLASSES,
+                            seed=seed)
+    make_s = time.perf_counter() - t0
+    g = graph_to_device({k: g[k] for k in ("x", "edge_src", "edge_dst")},
+                        DEVICE)
+    deg = torch.bincount(g["edge_dst"].long(), minlength=GIN_NODES)
+    info = {"nodes": GIN_NODES, "edges": g["edge_src"].numel(),
+            "host_make_s": make_s, "max_in_degree": int(deg.max())}
+    return g, info
+
+
+def _abs_sums(torch, dst, msg, n_nodes, chunk: int = 1 << 23):
+    """Per node, the float32 sum of |msg| over its edges (chunked over
+    edges to bound the float32 copy)."""
+    seg = torch.where((dst >= 0) & (dst < n_nodes), dst, n_nodes).long()
+    acc = torch.zeros((n_nodes + 1, msg.shape[1]), dtype=torch.float32,
+                      device=msg.device)
+    for lo in range(0, msg.shape[0], chunk):
+        acc.index_add_(0, seg[lo:lo + chunk],
+                       msg[lo:lo + chunk].float().abs())
+    return acc[:n_nodes]
+
+
+def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
+    """The segment_sum kernel against its plain version at the GIN path's
+    shapes on the products graph: layer 1's messages (E x 100, bf16) and
+    a later layer's (E x 64, bf16), and E x 64 float32 messages of small
+    integers.
+
+    Both versions sum in float32 in an order the atomics decide, and a
+    hub row sums ~10^6 messages, so two correct sums of real values
+    differ by up to the recursive-summation bound, 2 x deg x 2^-24 x
+    (sum of |msg| into the row), plus one bf16 rounding (rtol 1e-2): the
+    bf16 cases are held to that bound per element.  Integer messages
+    (|m| <= 4, 4 x max in-degree < 2^24) sum exactly in any order, so
+    the float32 case must equal the plain version element for element.
+    Library yardstick: ``index_add_`` into a float32 accumulator, on
+    float32 messages."""
+    from repro_torch.kernels.segment_reduce import ops, ref
+
+    n = g["x"].shape[0]
+    src, dst = g["edge_src"].long(), g["edge_dst"]
+    if 4 * max_in_degree >= 2**24:
+        fail(f"in-degree {max_in_degree} too large for exact float32 sums")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    h64 = torch.randn((n, 64), generator=gen, device=DEVICE)
+    ints = torch.randint(-4, 5, (n, 64), generator=gen, device=DEVICE,
+                         dtype=torch.float32)
+    deg = torch.bincount(dst[dst >= 0].long(), minlength=n)[:n, None]
+    specs = [("gin_l1_bf16", lambda: g["x"].bfloat16()[src], 1e-2),
+             ("gin_l2_bf16", lambda: h64.bfloat16()[src], 1e-2),
+             ("f32_d64_exact", lambda: ints[src], None)]
+    results = []
+    for name, make, rtol in specs:
+        msg = make()
+        got = ops.segment_sum(dst, msg, n)
+        want = ref.segment_sum(dst, msg, n)
+        _sync(torch)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if rtol is None:
+            bad = int((diff > 0).sum())
+        else:
+            tol = rtol * want.float().abs() \
+                + 2 * deg * 2.0**-24 * _abs_sums(torch, dst, msg, n)
+            bad = int((diff > tol).sum())
+            del tol
+        if got.dtype != msg.dtype or got.shape != want.shape or bad:
+            fail(f"segment_sum case {name}: kernel != plain (max |err| "
+                 f"{err}, {bad} elements out of tolerance)")
+        del diff
+        ms = _time_ms(torch, lambda: ops.segment_sum(dst, msg, n), REPS)
+        plain_ms = _time_ms(torch, lambda: ref.segment_sum(dst, msg, n),
+                            REPS)
+        seg = torch.where((dst >= 0) & (dst < n), dst, n).long()
+        msg32 = msg.float()
+
+        def library():
+            return torch.zeros((n + 1, msg.shape[1]), device=DEVICE) \
+                .index_add_(0, seg, msg32)
+
+        library_ms = _time_ms(torch, library, REPS)
+        e, d = msg.shape
+        nbytes = 4 * e + e * d * msg.element_size() \
+            + n * d * msg.element_size()
+        bound_ms, bound_by = _bound(nbytes, e * d, FP32_ADDS_PER_S)
+        results.append({
+            "case": name, "edges": e, "nodes": n, "dim": d,
+            "dtype": str(msg.dtype).replace("torch.", ""), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "operations": e * d, "max_abs_err": err,
+            "tolerance": ("equal" if rtol is None else
+                          f"rtol {rtol} + 2 deg 2^-24 sum|msg|")})
+        del msg, msg32, seg, got, want
+        _free(torch)
+    emit({"phase": "segment_sum_cases", "kernel": "segment_sum",
+          "reps": REPS, "cases": results})
+    return results
+
+
+def phase_gin_infer(torch, seed: int, g, graph_info):
+    """GIN inference at the gin-tu config (5 layers, 64 hidden) with the
+    products graph's widths (100 features, 47 classes), bf16 activations
+    as the reference's cell for that shape has them; random weights from
+    a seeded generator.  ``GIN_FORWARDS`` timed forwards after one
+    warm-up, the segment_sum launch count zeroed just before and read
+    just after.  The logits are held against the plain-version forward:
+    relative Frobenius error <= 1e-2 (bf16 activations, one rounding
+    per op; the kernel's float32 sums round to bf16 at other places)."""
+    import dataclasses
+
+    from repro_torch.configs.gin_tu import CONFIG
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.models.gnn.models import GIN
+
+    cfg = dataclasses.replace(CONFIG, d_in=GIN_FEAT, n_classes=GIN_CLASSES,
+                              dtype=torch.bfloat16)
+    model = GIN(cfg, device=DEVICE, seed=seed)
+    if model.backend != "cuda":
+        fail(f"GIN's default backend is {model.backend}, not cuda")
+    _reset_peak(torch)
+    with torch.inference_mode():
+        model(g)                                     # warm-up, not counted
+        _sync(torch)
+        ops.segment_sum.launches = 0
+        times = []
+        for _ in range(GIN_FORWARDS):
+            t0 = time.perf_counter()
+            logits = model(g)
+            _sync(torch)
+            times.append(time.perf_counter() - t0)
+        launches = ops.segment_sum.launches
+        peak = _peak_gib(torch)
+        backend, model.backend = model.backend, "ref"
+        t0 = time.perf_counter()
+        want = model(g)
+        _sync(torch)
+        plain_s = time.perf_counter() - t0
+        model.backend = backend
+    n = g["x"].shape[0]
+    if logits.shape != (n, GIN_CLASSES) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"GIN logits {tuple(logits.shape)} not finite or of the wrong "
+             "shape")
+    rel = float((logits - want).norm() / want.norm())
+    out = {"phase": "gin_infer", "config": cfg.name, "layers": cfg.n_layers,
+           "hidden": cfg.d_hidden, "dtype": "bfloat16", **graph_info,
+           "forwards": GIN_FORWARDS, "forward_s": sorted(times),
+           "forward_s_median": _pctl(times, .5),
+           "nodes_per_s": n / _pctl(times, .5),
+           "edges_per_s": graph_info["edges"] / _pctl(times, .5),
+           "plain_forward_s": plain_s, "segment_sum_launches": launches,
+           "logits_rel_err": rel,
+           "logits_max_abs_err": _max_err(torch, logits, want),
+           "argmax_agreement": float((logits.argmax(1) == want.argmax(1))
+                                     .float().mean()),
+           "peak_mem_gib": peak}
+    emit(out)
+    if launches != cfg.n_layers * GIN_FORWARDS:
+        fail(f"GIN launched segment_sum {launches} times in "
+             f"{GIN_FORWARDS} forwards of {cfg.n_layers} layers")
+    if rel > 1e-2:
+        fail(f"GIN logits differ from the plain forward (rel err {rel})")
+    return out, launches
+
+
+# --------------------------------------------------------------------- #
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -541,30 +1049,51 @@ def main(argv=None) -> int:
     dev = phase_device(torch)
     phase_build()
     cases, worst = phase_kernels(torch, args.seed)
+    masks, mask_launches = phase_masks(torch, args.seed)
     stream = make_stream(args.seed, args.ticks * BATCH)
     serve, qids, matches, snap, launches = phase_serve(torch, args, stream)
     phase_parity(torch, args, stream, qids, matches, snap)
     phase_profile(torch, args, stream)
+    del stream, qids, matches, snap
+    _free(torch)
+    bags = phase_embedding_bag(torch, args.seed)
+    _, bag_launches = phase_recsys_serve(torch, args.seed)
+    graph, graph_info = make_products_graph(torch, args.seed)
+    sums = phase_segment_sum(torch, args.seed, graph,
+                             graph_info["max_in_degree"])
+    _, sum_launches = phase_gin_infer(torch, args.seed, graph, graph_info)
 
-    level = next(c for c in cases if c["case"] == "level_window")
-    emit({"kernels": [{
-        "name": "compat_join_pairs",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/compat_join/csrc/compat_join.cu",
-        "replaces": "src/repro/kernels/compat_join/kernel.py:454",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": level["ms"],
-        "plain_ms": level["plain_ms"],
-        "bound_ms": level["bound_ms"],
-        "bound_by": level["bound_by"],
-        "library_ms": None,
-        "timed_case": "level_window",
-        "cases": {c["case"]: {k: c[k] for k in
-                              ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "max_abs_err")}
-                  for c in cases},
-    }]})
+    def entry(name, source, replaces, launches, rows, timed, **extra):
+        row = next(r for r in rows if r["case"] == timed)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                **{k: row.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+                "timed_case": timed, **extra,
+                "cases": {r["case"]: {k: r.get(k) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")} for r in rows}}
+
+    cj = "src/repro/kernels/compat_join/kernel.py"
+    emit({"kernels": [
+        entry("compat_join_pairs", KERNEL_SOURCES["compat_join"], f"{cj}:454",
+              launches, cases, "level_window", also_replaces=f"{cj}:405",
+              launches_path="serve", tolerance="equal"),
+        entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
+              mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",
+              launches_path="core.join.compat_mask over the mask cases",
+              tolerance="equal"),
+        entry("embedding_bag", KERNEL_SOURCES["embedding_bag"],
+              "src/repro/kernels/embedding_bag/kernel.py:59", bag_launches,
+              bags, "wide_serve_bulk", launches_path="recsys_serve",
+              tolerance="rtol 1e-5, atol 1e-6"),
+        entry("segment_sum", KERNEL_SOURCES["segment_reduce"],
+              "src/repro/kernels/segment_reduce/kernel.py:59", sum_launches,
+              sums, "gin_l1_bf16", launches_path="gin_infer",
+              tolerance="bf16: rtol 1e-2 + 2 deg 2^-24 sum|msg| per element; "
+                        "float32 integer messages: equal"),
+    ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}),
         flush=True)

@@ -170,6 +170,32 @@ def extract_pairs(mask: torch.Tensor, max_new: int):
     return safe // cb, safe % cb, pair_valid, n_dropped
 
 
+def _require_cuda(tensors) -> None:
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(
+                f"JoinBackend.CUDA needs CUDA tensors, got one on {t.device}")
+
+
+def compat_mask(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
+                window=None, backend: str | None = None) -> torch.Tensor:
+    """The join mask, bool [S, CA, CB] (S = 1 when no operand carries a
+    slot axis).  ``backend`` None is the tensors' device default: the
+    CUDA mask kernel on the card, REF on the CPU; CUDA with CPU tensors
+    raises.  Both backends agree element for element."""
+    from repro_torch.kernels.compat_join import ops as cj_ops
+
+    tables = (bind_a, ets_a, valid_a, bind_b, ets_b, valid_b)
+    if backend is None:
+        backend = JoinBackend.default(bind_a.device)
+    if backend == JoinBackend.REF:
+        return compat_mask_ref(*tables, rel, trel, window)
+    if backend == JoinBackend.CUDA:
+        _require_cuda(tables)
+        return cj_ops.compat_mask(*tables, rel, trel, window)
+    raise ValueError(f"unknown join backend: {backend!r}")
+
+
 def join_pairs(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
                max_new: int, window=None, backend: str = JoinBackend.REF):
     """Fused compatibility join + pair extraction (the engine's hot path).
@@ -188,11 +214,7 @@ def join_pairs(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
             bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
             max_new, window)
     if backend == JoinBackend.CUDA:
-        for t in (bind_a, ets_a, valid_a, bind_b, ets_b, valid_b):
-            if not t.is_cuda:
-                raise ValueError(
-                    "JoinBackend.CUDA needs CUDA tensors, got one on "
-                    f"{t.device}")
+        _require_cuda((bind_a, ets_a, valid_a, bind_b, ets_b, valid_b))
         return cj_ops.compat_join_pairs(
             bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
             max_new, window)

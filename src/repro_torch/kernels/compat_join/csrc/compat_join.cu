@@ -1,9 +1,12 @@
-// Fused compatibility join with pair compaction, for Hopper (sm_90a).
+// Compatibility join kernels for Hopper (sm_90a): the fused join with pair
+// compaction, and the join predicate as a dense mask.
 //
 // Replaces the TPU kernels in src/repro/kernels/compat_join/kernel.py:
 //   * compat_join_pairs_kernel          (body _pairs_body, predicate _tile_mask)
 //   * compat_join_pairs_kernel_batched  (the same over a slot axis)
-// Both become one launch over a slot axis here: a single join is S = 1, and
+//   * compat_mask_kernel, compat_mask_kernel_batched  (body _mask_body;
+//     the mask kernel cj_mask, at the end of this file)
+// Each pair becomes one launch over a slot axis here: a single join is S = 1, and
 // every operand carries a slot stride that is 0 when the operand is shared
 // across the slots (a slot group's level joins share the stream-edge side),
 // so a shared operand is read once per slot from cache instead of being
@@ -51,6 +54,7 @@
 #define CJ_MAX_NE 16
 #define CJ_WARPS 8                 // A rows (warps) per block
 #define CJ_SCAN_THREADS 1024
+#define CJ_MASK_CHUNK 1024           // B columns per warp in cj_mask
 #define CJ_FULL 0xffffffffu
 
 struct CJArgs {
@@ -244,9 +248,77 @@ cj_emit(const CJArgs p, const int32_t* __restrict__ counts,
   }
 }
 
-// Plain C entry point, bound with ctypes.  rel / trel are HOST int8 arrays
-// ([nva*nvb], [nea*neb]); every other pointer is device memory.  a_out /
-// b_out must be pre-filled with -1.  Returns cudaGetLastError() (0 = ok).
+// The join predicate as a dense mask (B3/B4): out[s, a, b] = 1 where the pair
+// matches, else 0, as bytes (a torch.bool [S, CA, CB]).  Grid (A-row groups,
+// B chunks, slots); one warp per A row, lanes across the chunk's B columns,
+// so each warp store writes 32 consecutive bytes (one full sector).
+//
+// What bounds it: writing S x CA x CB bytes (4.3e9 at the serving path's
+// L0 shapes: 1.3 ms at 3.35 TB/s) against the predicate's compare work on
+// the valid pairs.  The offset of a mask byte is 64-bit: the output passes
+// 2^31 bytes at those shapes.
+__global__ void __launch_bounds__(CJ_WARPS * 32)
+cj_mask(const CJArgs p, uint8_t* __restrict__ out) {
+  __shared__ CJShared sh;
+  const int s = blockIdx.z, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int a = blockIdx.x * CJ_WARPS + warp;
+  const int va = stage(p, sh, s, a, warp, lane);
+  if (a >= p.ca) return;
+  const int b_lo = blockIdx.y * CJ_MASK_CHUNK;
+  const int b_hi = min(b_lo + CJ_MASK_CHUNK, p.cb);
+  uint8_t* row = out + ((long long)s * p.ca + a) * (long long)p.cb;
+  if (!va) {
+    for (int b = b_lo + lane; b < b_hi; b += 32) row[b] = 0;
+    return;
+  }
+  int a_min, a_max;
+  a_span(sh, warp, p.nea, &a_min, &a_max);
+  const int w = p.has_window ? p.window[s] : 0;
+  const uint8_t* vb = p.valid_b + s * p.sb_valid;
+  for (int b = b_lo + lane; b < b_hi; b += 32) {
+    bool ok = vb[b] != 0;
+    if (ok) ok = pred(p, sh, s, warp, b, a_min, a_max, w);
+    row[b] = ok;
+  }
+}
+
+// Fill the by-value argument struct; returns 0 or cudaErrorInvalidValue.
+static int make_args(
+    CJArgs* p, const void* bind_a, const void* ets_a, const void* valid_a,
+    const void* bind_b, const void* ets_b, const void* valid_b,
+    const void* window,
+    long long sa_bind, long long sa_ets, long long sa_valid,
+    long long sb_bind, long long sb_ets, long long sb_valid,
+    int n_slots, int ca, int cb, int nva, int nvb, int nea, int neb,
+    int has_window, int max_new, const void* rel, const void* trel) {
+  if (nva > CJ_MAX_NV || nvb > CJ_MAX_NV || nea > CJ_MAX_NE ||
+      neb > CJ_MAX_NE || nva < 1 || nvb < 1 || nea < 1 || neb < 1 ||
+      n_slots < 1 || n_slots > 65535 || ca < 1 || cb < 0 || max_new < 0)
+    return (int)cudaErrorInvalidValue;
+  memset(p, 0, sizeof(*p));
+  p->bind_a = (const int32_t*)bind_a;
+  p->ets_a = (const int32_t*)ets_a;
+  p->valid_a = (const uint8_t*)valid_a;
+  p->bind_b = (const int32_t*)bind_b;
+  p->ets_b = (const int32_t*)ets_b;
+  p->valid_b = (const uint8_t*)valid_b;
+  p->window = (const int32_t*)window;
+  p->sa_bind = sa_bind; p->sa_ets = sa_ets; p->sa_valid = sa_valid;
+  p->sb_bind = sb_bind; p->sb_ets = sb_ets; p->sb_valid = sb_valid;
+  p->ca = ca; p->cb = cb; p->nva = nva; p->nvb = nvb; p->nea = nea;
+  p->neb = neb;
+  p->has_window = has_window;
+  p->max_new = max_new;
+  memcpy(p->rel, rel, (size_t)nva * nvb);
+  memcpy(p->trel, trel, (size_t)nea * neb);
+  return 0;
+}
+
+// Plain C entry points, bound with ctypes.  rel / trel are HOST int8 arrays
+// ([nva*nvb], [nea*neb]); every other pointer is device memory.  Each returns
+// cudaGetLastError() after its launches (0 = ok).
+//
+// compat_join_pairs_launch: a_out / b_out must be pre-filled with -1.
 extern "C" int compat_join_pairs_launch(
     const void* bind_a, const void* ets_a, const void* valid_a,
     const void* bind_b, const void* ets_b, const void* valid_b,
@@ -257,26 +329,12 @@ extern "C" int compat_join_pairs_launch(
     int has_window, int max_new, const void* rel, const void* trel,
     void* counts, void* offsets, void* a_out, void* b_out, void* n_total,
     void* stream) {
-  if (nva > CJ_MAX_NV || nvb > CJ_MAX_NV || nea > CJ_MAX_NE ||
-      neb > CJ_MAX_NE || nva < 1 || nvb < 1 || nea < 1 || neb < 1 ||
-      n_slots < 1 || n_slots > 65535 || ca < 1 || cb < 0 || max_new < 0)
-    return (int)cudaErrorInvalidValue;
   CJArgs p;
-  memset(&p, 0, sizeof(p));
-  p.bind_a = (const int32_t*)bind_a;
-  p.ets_a = (const int32_t*)ets_a;
-  p.valid_a = (const uint8_t*)valid_a;
-  p.bind_b = (const int32_t*)bind_b;
-  p.ets_b = (const int32_t*)ets_b;
-  p.valid_b = (const uint8_t*)valid_b;
-  p.window = (const int32_t*)window;
-  p.sa_bind = sa_bind; p.sa_ets = sa_ets; p.sa_valid = sa_valid;
-  p.sb_bind = sb_bind; p.sb_ets = sb_ets; p.sb_valid = sb_valid;
-  p.ca = ca; p.cb = cb; p.nva = nva; p.nvb = nvb; p.nea = nea; p.neb = neb;
-  p.has_window = has_window;
-  p.max_new = max_new;
-  memcpy(p.rel, rel, (size_t)nva * nvb);
-  memcpy(p.trel, trel, (size_t)nea * neb);
+  int bad = make_args(&p, bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
+                      window, sa_bind, sa_ets, sa_valid, sb_bind, sb_ets,
+                      sb_valid, n_slots, ca, cb, nva, nvb, nea, neb,
+                      has_window, max_new, rel, trel);
+  if (bad) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((ca + CJ_WARPS - 1) / CJ_WARPS, n_slots);
   cj_count<<<grid, CJ_WARPS * 32, 0, st>>>(p, (int32_t*)counts);
@@ -289,5 +347,30 @@ extern "C" int compat_join_pairs_launch(
   cj_emit<<<grid, CJ_WARPS * 32, 0, st>>>(
       p, (const int32_t*)counts, (const int32_t*)offsets, (int32_t*)a_out,
       (int32_t*)b_out);
+  return (int)cudaGetLastError();
+}
+
+// compat_mask_launch: out is uint8 [n_slots, ca, cb]; every byte is written.
+extern "C" int compat_mask_launch(
+    const void* bind_a, const void* ets_a, const void* valid_a,
+    const void* bind_b, const void* ets_b, const void* valid_b,
+    const void* window,
+    long long sa_bind, long long sa_ets, long long sa_valid,
+    long long sb_bind, long long sb_ets, long long sb_valid,
+    int n_slots, int ca, int cb, int nva, int nvb, int nea, int neb,
+    int has_window, const void* rel, const void* trel, void* out,
+    void* stream) {
+  CJArgs p;
+  int bad = make_args(&p, bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
+                      window, sa_bind, sa_ets, sa_valid, sb_bind, sb_ets,
+                      sb_valid, n_slots, ca, cb, nva, nvb, nea, neb,
+                      has_window, 0, rel, trel);
+  if (bad) return bad;
+  const long long b_chunks = ((long long)cb + CJ_MASK_CHUNK - 1)
+                             / CJ_MASK_CHUNK;
+  if (cb < 1 || b_chunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((ca + CJ_WARPS - 1) / CJ_WARPS, (unsigned)b_chunks, n_slots);
+  cj_mask<<<grid, CJ_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      p, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

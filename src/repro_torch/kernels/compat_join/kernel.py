@@ -1,86 +1,37 @@
-"""Build, bind and launch the CUDA compat-join kernel (``csrc/compat_join.cu``).
+"""Bind and launch the CUDA compat-join kernels (``csrc/compat_join.cu``).
 
-The source has a plain ``extern "C"`` launch function and includes no
-PyTorch headers, so ``nvcc`` builds it in seconds into a shared library
-that ``ctypes`` loads.  The build happens at first use (never at import:
-the CPU tests import this module), into ``build/`` beside this file,
-keyed by a hash of the source, so a changed source rebuilds and an
-unchanged one is reused within a checkout.
+Two launch functions share the join predicate: ``compat_join_pairs``
+(count/scan/emit of the matching pairs) and ``compat_mask`` (the
+predicate as a dense bool mask).  The library is built by
+``repro_torch.kernels._build`` at first use, never at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).parent / "csrc" / "compat_join.cu"
-BUILD_DIR = Path(__file__).parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_NV = 16          # CJ_MAX_NV in the source
 MAX_NE = 16          # CJ_MAX_NE
-MAX_SLOTS = 65535    # grid.y
-
-_lock = threading.Lock()
-_lib = None
-build_log = ""       # nvcc's output (-Xptxas -v) of the build in this process
+MAX_SLOTS = 65535    # grid.y (pairs) / grid.z (mask)
+MASK_CHUNK = 1024    # CJ_MASK_CHUNK: B columns per warp; grid.y <= 65535
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("NVCC"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set NVCC or CUDA_HOME")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libcompat_join_{digest[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the source if this checkout has no library for it yet;
-    returns the library's path.  Raises on a failed build."""
-    global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.compat_join_pairs_launch
-            p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            fn.argtypes = ([p] * 7 + [ll] * 6 + [i] * 9 + [p] * 2
-                           + [p] * 5 + [p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+def _bind(lib) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    head = [p] * 7 + [ll] * 6 + [i] * 7      # tables, window, strides, dims
+    lib.compat_join_pairs_launch.argtypes = (head + [i] * 2 + [p] * 2
+                                             + [p] * 5 + [p])
+    lib.compat_join_pairs_launch.restype = ctypes.c_int
+    lib.compat_mask_launch.argtypes = head + [i] + [p] * 2 + [p] + [p]
+    lib.compat_mask_launch.restype = ctypes.c_int
 
 
 def _operand(x: torch.Tensor, nd: int, dtype, name: str):
@@ -98,12 +49,11 @@ def _operand(x: torch.Tensor, nd: int, dtype, name: str):
     return x, stride
 
 
-def compat_join_pairs_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
-                           rel, trel, max_new: int, window, n_slots: int):
-    """Launch the kernel: returns ``(a_raw, b_raw, n_total)`` as int32
-    [S, max_new] ×2 (-1 fill) and int32 [S].  ``window`` is None or an
-    int32 CUDA tensor [S].  Checks device, type and shape, and raises on
-    what the kernel does not take or a launch error."""
+def _prepare(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
+             window, n_slots: int, what: str):
+    """Check and flatten the join's operands for a launch: returns the
+    launch's leading arguments (tables, window, strides, dims) and the
+    spec arrays, which must stay alive until the launch returns."""
     ops_in = [
         _operand(bind_a, 3, torch.int32, "bind_a"),
         _operand(ets_a, 3, torch.int32, "ets_a"),
@@ -136,33 +86,72 @@ def compat_join_pairs_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
             raise ValueError(f"operand with {t.shape[0]} slots, join has "
                              f"{n_slots}")
     if ca == 0 or cb == 0:
-        raise ValueError("compat_join_pairs_cuda needs non-empty tables")
+        raise ValueError(f"{what} needs non-empty tables")
+    if window is not None:
+        window = window.to(device=ba.device, dtype=torch.int32).contiguous()
+        if window.shape != (n_slots,):
+            raise ValueError(f"window: expected [{n_slots}], got "
+                             f"{tuple(window.shape)}")
+    head = (ba.data_ptr(), ea.data_ptr(), va.data_ptr(),
+            bb.data_ptr(), eb.data_ptr(), vb.data_ptr(),
+            None if window is None else window.data_ptr(),
+            sab, sae, sav, sbb, sbe, sbv,
+            n_slots, ca, cb, nva, nvb, nea, neb, int(window is not None))
+    # the tensors (contiguous copies included) and the spec arrays must
+    # outlive the launch call
+    keep = (ops_in, window, rel, trel)
+    return head, rel, trel, keep
+
+
+def compat_join_pairs_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
+                           rel, trel, max_new: int, window, n_slots: int):
+    """Launch the pair kernel: returns ``(a_raw, b_raw, n_total)`` as
+    int32 [S, max_new] ×2 (-1 fill) and int32 [S].  ``window`` is None or
+    an int32 CUDA tensor [S].  Checks device, type and shape, and raises
+    on what the kernel does not take or a launch error."""
+    head, rel, trel, _keep = _prepare(
+        bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel, window,
+        n_slots, "compat_join_pairs_cuda")
+    ca, cb = head[14], head[15]
     if ca * cb >= 2**31:
         raise ValueError(f"{ca} x {cb} pairs overflow the int32 counts")
-    dev = ba.device
+    dev = bind_a.device
     a_raw = torch.full((n_slots, max_new), -1, dtype=torch.int32, device=dev)
     b_raw = torch.full((n_slots, max_new), -1, dtype=torch.int32, device=dev)
     n_total = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
     counts = torch.empty((n_slots, ca), dtype=torch.int32, device=dev)
     offsets = torch.empty((n_slots, ca), dtype=torch.int32, device=dev)
-    if window is not None:
-        window = window.to(device=dev, dtype=torch.int32).contiguous()
-        if window.shape != (n_slots,):
-            raise ValueError(f"window: expected [{n_slots}], got "
-                             f"{tuple(window.shape)}")
-    lib = _load()
+    lib = _build.load(SOURCE, _bind)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.compat_join_pairs_launch(
-        ba.data_ptr(), ea.data_ptr(), va.data_ptr(),
-        bb.data_ptr(), eb.data_ptr(), vb.data_ptr(),
-        None if window is None else window.data_ptr(),
-        sab, sae, sav, sbb, sbe, sbv,
-        n_slots, ca, cb, nva, nvb, nea, neb,
-        int(window is not None), int(max_new),
-        rel.ctypes.data, trel.ctypes.data,
+        *head, int(max_new), rel.ctypes.data, trel.ctypes.data,
         counts.data_ptr(), offsets.data_ptr(), a_raw.data_ptr(),
         b_raw.data_ptr(), n_total.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"compat_join_pairs launch failed: CUDA error "
                            f"{err}")
     return a_raw, b_raw, n_total
+
+
+def compat_mask_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel,
+                     trel, window, n_slots: int):
+    """Launch the mask kernel: returns the join mask as bool [S, CA, CB]
+    (every byte written by the kernel).  ``window`` is None or an int32
+    CUDA tensor [S].  Raises on what the kernel does not take or a launch
+    error."""
+    head, rel, trel, _keep = _prepare(
+        bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel, window,
+        n_slots, "compat_mask_cuda")
+    ca, cb = head[14], head[15]
+    if -(-cb // MASK_CHUNK) > 65535:
+        raise ValueError(f"CB {cb} exceeds the mask grid "
+                         f"({65535 * MASK_CHUNK})")
+    dev = bind_a.device
+    out = torch.empty((n_slots, ca, cb), dtype=torch.bool, device=dev)
+    lib = _build.load(SOURCE, _bind)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.compat_mask_launch(*head, rel.ctypes.data, trel.ctypes.data,
+                                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"compat_mask launch failed: CUDA error {err}")
+    return out

@@ -1,4 +1,4 @@
-"""Public wrapper of the compat_join kernel.
+"""Public wrappers of the compat_join kernels.
 
 ``compat_join_pairs`` is the fused compatibility join + pair extraction
 over a slot axis: the port of ``repro.kernels.compat_join.ops.
@@ -14,9 +14,14 @@ int64 [S, max_new] ×2 (0 where not valid), bool [S, max_new], int32 [S].
 The kernel emits pairs in the mask's row-major order, so it agrees with
 the plain version element for element, overflow included.
 
-``compat_join_pairs.launches`` counts kernel launches (one per call that
-reaches the card); ``chip_smoke.py`` zeroes and reads it around the main
-path.
+``compat_mask`` is the join predicate as a dense bool mask [S, CA, CB]:
+the port of ``repro.kernels.compat_join.ops.compat_mask`` and of its
+batched rule, one launch for S = 1 and for a slot group alike.  It
+equals the plain version (``ref.compat_mask``) element for element.
+
+``compat_join_pairs.launches`` and ``compat_mask.launches`` count kernel
+launches (one per call that reaches the card); ``chip_smoke.py`` zeroes
+and reads them around each path.
 """
 
 from __future__ import annotations
@@ -50,3 +55,21 @@ def compat_join_pairs(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
 
 
 compat_join_pairs.launches = 0
+
+
+def compat_mask(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
+                window=None):
+    """The join mask over a slot axis -> bool [S, CA, CB]; operands and
+    ``window`` as for ``compat_join_pairs``."""
+    if not bind_a.is_cuda:
+        return R.compat_mask(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
+                             rel, trel, window)
+    n = n_slots_of(bind_a, bind_b, window)
+    w = as_window(window, n, bind_a.device)
+    out = K.compat_mask_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
+                             rel, trel, w, n)
+    compat_mask.launches += 1
+    return out
+
+
+compat_mask.launches = 0

@@ -1,9 +1,10 @@
-"""The plain torch version of the compat_join kernel.
+"""The plain torch versions of the compat_join kernels.
 
-The wrapper in ``ops`` takes it for CPU tensors; on the card only the
-REF backend, the tests and ``chip_smoke.py`` call it.  It is the
-reference semantics: materialize each slot's [CA, CB] mask, then extract
-the first ``max_new`` pairs in row-major order.
+The wrappers in ``ops`` take them for CPU tensors; on the card only the
+REF backend, the tests and ``chip_smoke.py`` call them.  They are the
+reference semantics: ``compat_mask`` materializes the [S, CA, CB] mask;
+``compat_join_pairs`` extracts the first ``max_new`` pairs of each
+slot's mask in row-major order.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ from repro_torch.core.join import (
     extract_pairs,
     n_slots_of,
 )
+
+
+# the plain mask is the REF join predicate itself
+compat_mask = compat_mask_ref
 
 
 def _slot(x, s, nd):

@@ -6,6 +6,9 @@ refuses.
   port in a fresh process).
 * Entry points run on the card unless the caller asks for the CPU: with
   no CUDA device they raise, and ``device="cpu"`` works.
+* The kernels' wrappers run where their tensors lie: the plain version
+  on CPU tensors, without a launch; ``backend="cuda"`` with CPU tensors
+  raises, and nothing falls back.
 * ``JoinBackend.CUDA`` with CPU tensors raises; nothing falls back.
 * ``chip_smoke.py`` without a card, or alone in a directory, exits
   non-zero and prints no result.
@@ -17,12 +20,23 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import _torch_util  # noqa: F401  (caps torch threads)
+from repro_torch.configs import gin_tu, wide_deep
 from repro_torch.core import engine, multi, state
+from repro_torch.core import join as TJ
 from repro_torch.core.plan import compile_plan
+from repro_torch.data.graphs import graph_to_device
+from repro_torch.data.recsys import batch_to_device
+from repro_torch.kernels.compat_join import ops as cj_ops
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.segment_reduce import ops as sr_ops
+from repro_torch.models.common import params_from_numpy
+from repro_torch.models.gnn.models import GIN
+from repro_torch.models.recsys.wide_deep import WideDeep
 from repro_torch.core.query import QueryGraph
 from repro_torch.runtime.service import ContinuousSearchService
 
@@ -35,6 +49,14 @@ MODULES = [
     "repro_torch.kernels.compat_join.ops",
     "repro_torch.kernels.compat_join.kernel",
     "repro_torch.stream.generator", "repro_torch.analysis",
+    "repro_torch.kernels.embedding_bag.ops",
+    "repro_torch.kernels.embedding_bag.kernel",
+    "repro_torch.kernels.segment_reduce.ops",
+    "repro_torch.kernels.segment_reduce.kernel",
+    "repro_torch.models.recsys.wide_deep", "repro_torch.models.gnn.models",
+    "repro_torch.models.gnn.message", "repro_torch.data.recsys",
+    "repro_torch.data.graphs", "repro_torch.configs.wide_deep",
+    "repro_torch.configs.gin_tu",
 ]
 
 
@@ -77,7 +99,8 @@ def _plan():
 
 @pytest.mark.parametrize("entry", [
     "init_state", "init_slot_state", "build_tick", "make_batch",
-    "service", "service_cuda_device"])
+    "service", "service_cuda_device", "wide_deep", "gin",
+    "batch_to_device", "graph_to_device", "params_from_numpy"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan = _plan()
@@ -90,11 +113,52 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "service": lambda **kw: ContinuousSearchService(**kw),
         "service_cuda_device": lambda **kw: ContinuousSearchService(
             **{"device": "cuda", **kw}),
+        "wide_deep": lambda **kw: WideDeep(wide_deep.smoke_config(), **kw),
+        "gin": lambda **kw: GIN(gin_tu.smoke_config(), **kw),
+        "batch_to_device": lambda **kw: batch_to_device(
+            {"dense": np.zeros((2, 3), np.float32)}, **kw),
+        "graph_to_device": lambda **kw: graph_to_device(
+            {"x": np.zeros((2, 3), np.float32), "n_graphs": 1}, **kw),
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            {"w": [np.ones(2, np.float32)]}, **kw),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
     if entry != "service_cuda_device":
         calls[entry](device="cpu")             # the CPU on request
+
+
+def _op_args(op):
+    """Small CPU inputs of each kernel wrapper."""
+    i32 = torch.int32
+    if op == "compat_mask":
+        t = (torch.zeros((1, 3, 2), dtype=i32), torch.zeros((1, 3, 1), dtype=i32),
+             torch.ones((1, 3), dtype=torch.bool), torch.zeros((4, 2), dtype=i32),
+             torch.ones((4, 1), dtype=i32), torch.ones((1, 4), dtype=torch.bool))
+        rel = np.array([[False, False], [True, False]])
+        return cj_ops.compat_mask, t + (rel, np.array([[-1]], np.int8))
+    if op == "embedding_bag":
+        ids = torch.tensor([0, -1, 2, 1], dtype=i32)
+        bags = torch.tensor([0, 0, 1, 1], dtype=i32)
+        return eb_ops.embedding_bag, (ids, bags, torch.ones((3, 2)), 2)
+    dst = torch.tensor([0, 1, 1, -1], dtype=i32)
+    return sr_ops.segment_sum, (dst, torch.ones((4, 2)), 2)
+
+
+@pytest.mark.parametrize("op", ["compat_mask", "embedding_bag",
+                                "segment_sum"])
+def test_kernel_wrappers_run_where_their_tensors_lie(op, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn, args = _op_args(op)
+    before = fn.launches
+    out = fn(*args)                       # CPU tensors: the plain version
+    assert out.device.type == "cpu" and fn.launches == before
+    if op == "compat_mask":
+        with pytest.raises(ValueError, match="CUDA"):
+            TJ.compat_mask(*args, backend="cuda")
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args, backend="cuda")
 
 
 def test_cuda_backend_with_cpu_tensors_raises():

@@ -1,11 +1,15 @@
-"""The port's CUDA kernel on the card (marker ``gpu``; skips without a
+"""The port's CUDA kernels on the card (marker ``gpu``; skips without a
 CUDA device).  Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The kernel must agree with its plain version element for element
-(pairs in row-major order, overflow included), and a CUDA-backend slot
-group must tick bit-identically to the REF backend on the card.
+The compat-join kernels must agree with their plain versions element for
+element (pairs in row-major order, overflow included; masks byte for
+byte), and a CUDA-backend slot group must tick bit-identically to the
+REF backend on the card.  The embedding_bag and segment_sum kernels sum
+in float32 in another order than their plain versions: float32 within
+rtol 1e-5 / atol 1e-5, bfloat16 within one bfloat16 rounding (rtol 1e-2
+/ atol 1e-2).
 """
 
 import numpy as np
@@ -21,6 +25,10 @@ from repro_torch.core.plan import compile_plan
 from repro_torch.core.query import QueryGraph
 from repro_torch.core.state import make_batch
 from repro_torch.kernels.compat_join import ops, ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.segment_reduce import ops as sr_ops
+from repro_torch.kernels.segment_reduce import ref as sr_ref
 from repro_torch.stream.generator import (
     StreamConfig,
     synth_traffic_stream,
@@ -134,3 +142,78 @@ def test_cuda_single_query_tick_equals_ref_tick(cuda):
                         _leaves(states["cuda"]) + _leaves(res["cuda"])):
             assert torch.equal(x, y)
     assert int(states["cuda"].stats.n_matches_total) > 0
+
+
+@pytest.mark.parametrize("n_slots,ca,cb,window", [
+    (1, 1000, 300, None),
+    (4, 3000, 1500, 30),             # several B chunks, ragged
+    (3, 77, 5000, 12),
+])
+@pytest.mark.parametrize("shared_b", [False, True])
+def test_mask_kernel_equals_plain_version(cuda, n_slots, ca, cb, window,
+                                          shared_b):
+    rng = np.random.default_rng(ca * cb)
+    rel = np.array([[True, False, False], [False, False, True]])
+    trel = np.array([[-1, 0], [0, 1]], np.int8)
+    lead_b = () if shared_b else (n_slots,)
+
+    def t(x):
+        return torch.as_tensor(x, device=cuda)
+
+    args = (t(rng.integers(0, 20, (n_slots, ca, 2), dtype=np.int32)),
+            t(rng.integers(0, 50, (n_slots, ca, 2), dtype=np.int32)),
+            t(rng.random((n_slots, ca)) < 0.8),
+            t(rng.integers(0, 20, lead_b + (cb, 3), dtype=np.int32)),
+            t(rng.integers(0, 50, lead_b + (cb, 2), dtype=np.int32)),
+            t(rng.random((n_slots, cb)) < 0.8))
+    win = None if window is None else \
+        t(np.full((n_slots,), window, np.int32))
+    before = ops.compat_mask.launches
+    got = ops.compat_mask(*args, rel, trel, win)
+    assert ops.compat_mask.launches == before + 1
+    want = ref.compat_mask(*args, rel, trel, win)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert bool(got.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_bags,max_bag,d", [
+    (512, 16, 1), (3000, 40, 1), (300, 16, 32), (200, 70, 100)])
+def test_embedding_bag_kernel_equals_plain_version(cuda, n_bags, max_bag, d,
+                                                   dtype):
+    rng = np.random.default_rng(n_bags + d)
+    sizes = rng.integers(0, max_bag + 1, n_bags)          # empty bags too
+    bags = np.repeat(np.arange(n_bags, dtype=np.int32), sizes)
+    ids = rng.integers(0, 5000, bags.size).astype(np.int32)
+    ids[rng.random(bags.size) < 0.25] = -1
+    table = torch.randn((5000, d), device=cuda).to(dtype)
+    args = (torch.as_tensor(ids, device=cuda),
+            torch.as_tensor(bags, device=cuda), table, n_bags)
+    before = eb_ops.embedding_bag.launches
+    got = eb_ops.embedding_bag(*args)
+    assert eb_ops.embedding_bag.launches == before + 1
+    want = eb_ref.embedding_bag(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n_bags, d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[torch.as_tensor(sizes == 0, device=cuda)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,d", [(100_000, 5000, 1), (200_000, 3000, 64),
+                                   (50_000, 20_000, 100)])
+def test_segment_sum_kernel_equals_plain_version(cuda, e, n, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(e + d)
+    dst = torch.randint(-50, n + 50, (e,), generator=g, device=cuda,
+                        dtype=torch.int32)                 # some dropped
+    msg = torch.randn((e, d), generator=g, device=cuda).to(dtype)
+    before = sr_ops.segment_sum.launches
+    got = sr_ops.segment_sum(dst, msg, n)
+    assert sr_ops.segment_sum.launches == before + 1
+    want = sr_ref.segment_sum(dst, msg, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -19,12 +19,14 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[Path, ctypes.CDLL] = {}   # source -> its loaded library
+_libs: dict[Path, ctypes.PyDLL] = {}   # source -> its loaded library
 build_logs: dict[str, str] = {}   # source name -> nvcc's output (-Xptxas -v)
 
 
@@ -74,16 +76,26 @@ def build(*sources: Path) -> list[Path]:
     return outs
 
 
-def load(source: Path, bind) -> ctypes.CDLL:
+def stream_of(t) -> int:
+    """The handle of the current CUDA stream of tensor ``t``'s device,
+    taken without building a ``torch.cuda.Stream`` object (launches call
+    this every time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def load(source: Path, bind) -> ctypes.PyDLL:
     """The loaded library of ``source`` (built if needed); ``bind(lib)``
     declares its functions' ``argtypes``/``restype`` once.  After the
-    first call this is one dict lookup: launches call it every time."""
+    first call this is one dict lookup: launches call it every time.
+    Loaded as a ``PyDLL``: a launch function only queues work and
+    returns, so keeping the interpreter lock is cheaper than handing it
+    over and back on every call."""
     lib = _libs.get(source)
     if lib is None:
         with _lock:
             lib = _libs.get(source)
             if lib is None:
-                lib = ctypes.CDLL(str(build(source)[0]))
+                lib = ctypes.PyDLL(str(build(source)[0]))
                 bind(lib)
                 _libs[source] = lib
     return lib

@@ -13,6 +13,8 @@ zeroes and reads it around the Wide&Deep serving path.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.join import JoinBackend, resolve_backend
 from repro_torch.kernels.embedding_bag import kernel as K
 from repro_torch.kernels.embedding_bag import ref as R
@@ -29,10 +31,14 @@ def embedding_bag(ids, bags, table, n_bags: int, backend: str | None = None):
     (the kernel on the card, the plain version on the CPU); "ref" is the
     plain version anywhere; "cuda" with CPU tensors raises.
     """
-    backend = resolve_backend(backend, table.device)
-    if backend == JoinBackend.REF:
-        return R.embedding_bag(ids, bags, table, n_bags)
-    out = K.embedding_bag_cuda(ids.int(), bags.int(), table, int(n_bags))
+    if backend is not None or not table.is_cuda:   # None on the card: CUDA
+        if resolve_backend(backend, table.device) == JoinBackend.REF:
+            return R.embedding_bag(ids, bags, table, n_bags)
+    if ids.dtype != torch.int32:
+        ids = ids.int()
+    if bags.dtype != torch.int32:
+        bags = bags.int()
+    out = K.embedding_bag_cuda(ids, bags, table, int(n_bags))
     embedding_bag.launches += 1
     return out
 

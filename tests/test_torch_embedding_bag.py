@@ -18,7 +18,7 @@ import torch
 from repro.kernels.embedding_bag import ops as ref_ops
 
 import _torch_util  # noqa: F401  (caps torch threads)
-from repro_torch.kernels.embedding_bag import ops, ref
+from repro_torch.kernels.embedding_bag import kernel, ops, ref
 
 
 def _case(rng, n_bags, per_bag, v, d, empty_bag):
@@ -39,6 +39,8 @@ def _case(rng, n_bags, per_bag, v, d, empty_bag):
     (12, 5, 80, 8, True),
     (32, 1, 1000, 8, False),     # one id per bag
     (32, 1, 1000, 1, False),
+    (4, 100, 500, 1, False),     # bags of 100 ids: several loads a lane
+    (4, 100, 500, 8, True),
 ])
 def test_embedding_bag_matches_reference(n_bags, per_bag, v, d, empty_bag):
     rng = np.random.default_rng(n_bags * v + d)
@@ -69,3 +71,55 @@ def test_cuda_backend_refuses_cpu_tensors():
     ids = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         ops.embedding_bag(ids, ids, torch.zeros(3, 2), 2, backend="cuda")
+
+
+# The CUDA launch plan (kernel.plan): (T, n_bags, D, bytes per value,
+# data_ptr % 16) at Wide&Deep's wide side (serve_p99, serve_bulk), the
+# general D = 32 case and the GPU tests' edge cases.
+@pytest.mark.parametrize("t,n_bags,d,elem,align", [
+    (8192, 512, 1, 4, 0), (4_194_304, 262_144, 1, 4, 0),
+    (524_288, 65_536, 32, 4, 0), (524_288, 65_536, 32, 2, 0),
+    (0, 1, 1, 4, 0), (37, 1, 32, 4, 0), (103, 3, 1, 2, 0),
+    (3000, 100, 1, 4, 0), (5000, 200, 100, 4, 0), (5000, 200, 100, 2, 8),
+    (64, 8, 3, 4, 4), (64, 8, 3, 2, 2),
+])
+def test_launch_plan(t, n_bags, d, elem, align):
+    p = kernel.plan(t, n_bags, 1000, d, elem, align)
+    assert align % p.vec == 0 and (d * elem) % p.vec == 0 and p.vec >= elem
+    wider = [v for v in kernel.VEC_BYTES if v > p.vec]
+    assert all(align % v or (d * elem) % v for v in wider)
+    ve = p.vec // elem
+    if d == 1:          # several bags to a warp: 8 lanes, 16 for long bags
+        assert p.lr == 1 and p.gw == (8 if t <= 16 * n_bags else 16)
+    else:               # a bag to a warp; lr lanes cover a row's loads
+        assert p.gw == 32 and p.lr & (p.lr - 1) == 0
+        assert p.lr == min(32, 1 << (-(-d // ve) - 1).bit_length())
+    # k_bags bags a group: as many as keep two waves of blocks
+    groups = kernel.THREADS // p.gw
+    assert 1 <= p.k_bags <= kernel.MAX_K
+    assert p.k_bags == 1 or n_bags >= p.k_bags * groups * kernel.WAVE_BLOCKS
+    per_block = groups * p.k_bags
+    assert per_block <= 256                     # EB_MAX_BAGS in the source
+    assert (p.blocks - 1) * per_block < n_bags <= p.blocks * per_block
+    assert list(p.c_args) == [getattr(p, f) for f in kernel.PLAN_FIELDS]
+
+
+def test_launch_plan_groups_at_d1():
+    v = 4_000_000
+    assert kernel.plan(8192, 512, v, 1, 4, 0).gw == 8          # serve_p99
+    bulk = kernel.plan(4_194_304, 262_144, v, 1, 4, 0)        # serve_bulk
+    assert (bulk.gw, bulk.k_bags, bulk.blocks) == (8, 3, 2731)
+    assert kernel.plan(3000, 100, v, 1, 4, 0).gw == 16         # 30 ids a bag
+    assert kernel.plan(524_288, 65_536, v, 32, 4, 0).lr == 8   # 16-byte loads
+
+
+def test_plan_fields_follow_the_source_enum():
+    """The plan goes to the CUDA source as an int64 array indexed by its
+    E_* enum: the two orders must agree."""
+    import re
+
+    body = re.search(r"enum \{(.*?)\};", kernel.SOURCE.read_text(),
+                     re.S).group(1)
+    names = [x.strip() for x in body.split(",") if x.strip()]
+    assert names[-1] == "E_COUNT"
+    assert [x[2:].lower() for x in names[:-1]] == list(kernel.PLAN_FIELDS)

@@ -9,7 +9,11 @@ byte), and a CUDA-backend slot group must tick bit-identically to the
 REF backend on the card.  The embedding_bag and segment_sum kernels sum
 in float32 in another order than their plain versions: float32 within
 rtol 1e-5 / atol 1e-5, bfloat16 within one bfloat16 rounding (rtol 1e-2
-/ atol 1e-2).
+/ atol 1e-2).  The segment_sum edge cases (a hub node with 40% of the
+edges, D from 1 to 65536, unaligned messages, no edges) use
+integer-valued float32 messages, which must sum exactly, and bf16
+messages held to one bf16 rounding plus the float32 summation bound.
+One embedding_bag call must be one device kernel.
 """
 
 import numpy as np
@@ -217,3 +221,164 @@ def test_segment_sum_kernel_equals_plain_version(cuda, e, n, d, dtype):
     assert got.dtype == dtype and got.shape == (n, d)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _eb_check(args, d, dtype, plain_args=None):
+    before = eb_ops.embedding_bag.launches
+    got = eb_ops.embedding_bag(*args)
+    assert eb_ops.embedding_bag.launches == before + 1
+    want = eb_ref.embedding_bag(*(plain_args or args))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (args[3], d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 32])
+@pytest.mark.parametrize("case", ["empty_ends", "no_ids", "one_bag",
+                                  "bag_of_100", "out_of_range"])
+def test_embedding_bag_kernel_edge_cases(cuda, case, d, dtype):
+    """Empty bags at the front and at the back, T = 0, n_bags = 1, a bag
+    of 100 ids, and bags/ids outside their ranges (skipped)."""
+    rng = np.random.default_rng(d)
+    v = 700
+    if case == "empty_ends":        # bags 0-4 and 45-49 get no ids
+        n_bags = 50
+        bags = np.repeat(np.arange(5, 45, dtype=np.int32),
+                         rng.integers(1, 9, 40))
+    elif case == "no_ids":
+        n_bags, bags = 1, np.zeros(0, np.int32)
+    elif case == "one_bag":
+        n_bags, bags = 1, np.zeros(37, np.int32)
+    elif case == "bag_of_100":
+        n_bags = 3
+        bags = np.repeat(np.arange(3, dtype=np.int32), [1, 100, 2])
+    else:                           # bags -2, -1 and 9, 10 are skipped
+        n_bags = 9
+        bags = np.sort(rng.integers(-2, 11, 80)).astype(np.int32)
+    ids = rng.integers(0, v, bags.size).astype(np.int32)
+    ids[rng.random(bags.size) < 0.2] = -1
+    if case == "out_of_range":
+        ids[::7] = v + 3                            # past the table: skipped
+    table = torch.randn((v, d), device=cuda).to(dtype)
+    args = (torch.as_tensor(ids, device=cuda),
+            torch.as_tensor(bags, device=cuda), table, n_bags)
+    # the plain version indexes every id and bag: it gets the same sums
+    # with the skipped entries made padding (ids -1 into bag 0)
+    kept = (bags >= 0) & (bags < n_bags) & (ids >= 0) & (ids < v)
+    plain = (torch.as_tensor(np.where(kept, ids, -1), device=cuda),
+             torch.as_tensor(np.where(kept, bags, 0), device=cuda), table,
+             n_bags)
+    got = _eb_check(args, d, dtype, plain)
+    filled = np.zeros(n_bags, bool)
+    filled[bags[kept]] = 1
+    assert not got[torch.as_tensor(~filled, device=cuda)].any()
+
+
+@pytest.mark.parametrize("d", [1, 32])
+def test_embedding_bag_launches_one_device_kernel(cuda, d):
+    """One wrapper call is one device kernel (no scratch pass, no copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_bags = 512
+    ids = torch.randint(-1, 1000, (n_bags * 16,), device=cuda,
+                        dtype=torch.int32)
+    bags = torch.arange(n_bags, dtype=torch.int32,
+                        device=cuda).repeat_interleave(16)
+    table = torch.randn((1000, d), device=cuda)
+    eb_ops.embedding_bag(ids, bags, table, n_bags)         # build, warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(5):
+            eb_ops.embedding_bag(ids, bags, table, n_bags)
+        torch.cuda.synchronize()
+    # the profiler may miss a launch, never add one
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "eb_bag_sum" in kernels[0].key, \
+        [e.key for e in kernels]
+    assert 1 <= kernels[0].count <= 5
+
+
+def _sr_check(dst, msg, n):
+    """The kernel against the plain version.  Integer-valued float32
+    messages sum exactly in any order: equal.  bf16: one bf16 rounding
+    (rtol 1e-2) plus the float32 summation bound 2 deg 2^-24 sum|msg|."""
+    before = sr_ops.segment_sum.launches
+    got = sr_ops.segment_sum(dst, msg, n)
+    assert sr_ops.segment_sum.launches == before + 1
+    want = sr_ref.segment_sum(dst, msg, n)
+    torch.cuda.synchronize()
+    assert got.dtype == msg.dtype and got.shape == (n, msg.shape[1])
+    if msg.dtype == torch.float32:
+        assert torch.equal(got, want)
+        return got
+    ok = (dst >= 0) & (dst < n)
+    seg = torch.where(ok, dst, n).long()
+    deg = torch.bincount(seg, minlength=n + 1)[:n, None].float()
+    abs_sum = torch.zeros((n + 1, msg.shape[1]), device=msg.device) \
+        .index_add_(0, seg, msg.float().abs())[:n]
+    tol = 1e-2 * want.float().abs() + 2 * deg * 2.0**-24 * abs_sum + 1e-6
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    return got
+
+
+def _sr_msg(g, e, d, dtype, cuda, unaligned):
+    """Messages [e, d]: small integers as float32 (exact sums), normal
+    values as bf16; ``unaligned`` takes rows 1.. of an [e + 1, d] tensor,
+    whose data_ptr is then off the 16-byte grid when the row bytes are."""
+    rows = e + 1 if unaligned else e
+    if dtype == torch.float32:
+        msg = torch.randint(-4, 5, (rows, d), generator=g, device=cuda,
+                            dtype=torch.float32)
+    else:
+        msg = torch.randn((rows, d), generator=g, device=cuda).to(dtype)
+    return msg[1:] if unaligned else msg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,d,hub,unaligned", [
+    (200_000, 5000, 1, 0.4, False),       # segment_mean's count column
+    (200_000, 5000, 3, 0.4, True),        # 12/6-byte rows: narrow loads
+    (200_000, 5000, 64, 0.4, False),
+    (100_000, 3000, 100, 0.4, True),      # msg[1:] of a GIN layer-1 width
+    (30_000, 300, 300, 0.5, False),       # column chunks of a hub tile
+    (300, 40, 65536, 0.0, False),         # past shared memory even at TN=1
+    (100_000, 3_200_000, 8, 0.4, False),  # tile counters past shared memory
+])
+def test_segment_sum_kernel_cases(cuda, e, n, d, hub, unaligned, dtype):
+    """One node takes ``hub`` of the edges, so its tile is cut into pieces
+    (more than CH edges) and combined through the float32 scratch."""
+    from repro_torch.kernels.segment_reduce import kernel as sr_kernel
+
+    g = torch.Generator(device=cuda).manual_seed(e + d)
+    dst = torch.randint(-20, n + 20, (e,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dst[torch.rand((e,), generator=g, device=cuda) < hub] = n // 3
+    msg = _sr_msg(g, e, d, dtype, cuda, unaligned)
+    plan = sr_kernel.plan(e, n, d, msg.element_size(), msg.data_ptr() % 16)
+    if hub:
+        assert int((dst == n // 3).sum()) > plan.ch
+    if unaligned and d == 3:
+        assert plan.vec == msg.element_size()
+    assert plan.priv == (n < 3_000_000)
+    got = _sr_check(dst, msg, n)
+    if hub:
+        assert bool(got[n // 3].float().abs().sum() > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["no_edges", "all_dropped"])
+def test_segment_sum_kernel_without_edges(cuda, case, dtype):
+    """E = 0, and every dst outside [0, N): the output is all zeros."""
+    n, d = 1000, 64
+    e = 0 if case == "no_edges" else 50_000
+    dst = torch.full((e,), -1, dtype=torch.int32, device=cuda)
+    dst[::2] = n + 7
+    msg = torch.ones((e, d), device=cuda, dtype=dtype)
+    got = _sr_check(dst, msg, n)
+    assert not got.any()

@@ -14,11 +14,18 @@ exit, nothing is caught and skipped):
                 the serving path's join shapes, over a slot group of 8
                 and at S = 1: outputs equal element for element;
                 CUDA-event times (median of 20) beside the plain
-                version's and the least time the card could take;
+                version's and the least time the card could take; each
+                call's device time by kernel (cj_count / cj_scan /
+                cj_emit, torch.profiler), the call's device operations
+                (a CUDA graph of one call: those three kernels once each
+                and nothing else), the host's time per call (loop_ms)
+                and the instantiation the plan picked;
   mask_cases    the mask entry point (core.join.compat_mask, the CUDA
                 mask kernel) at the same shapes: masks equal the plain
                 version's byte for byte, and each slot's first max_new
-                set bits are the pair kernel's pairs;
+                set bits are the pair kernel's pairs; device time of
+                cj_mask (the call's one device operation, as its CUDA
+                graph shows);
   serve         the main path: ContinuousSearchService on the card with
                 its default CUDA join backend, 16 tenants of two
                 structures in slot groups of 8, level/L0 capacity 65536,
@@ -32,8 +39,9 @@ exit, nothing is caught and skipped):
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
-                and both calls' device-only time and device operations
-                per call (torch.profiler; the kernel must be one);
+                and both calls' device-only time per call
+                (torch.profiler) and the kernel's device operations per
+                call (its CUDA graph: one eb_bag_sum kernel);
   recsys_serve  Wide&Deep at its published config serving 20 batches
                 each of serve_p99 and serve_bulk; logits held against
                 the plain version; one top-100 retrieval of 1M;
@@ -55,9 +63,12 @@ no result.
 ``--compare PARENT_TREE`` instead holds this tree's kernels against
 another checkout's (e.g. ``git archive`` of the parent commit unpacked
 under ``build/``) on one card: it makes the products graph once (kept
-under ``build/compare_graph/``), then runs each tree's own
-embedding_bag_cases and segment_sum_cases in a fresh process, in the
-order parent, change, change, parent, and prints each run's times.
+under ``build/compare_graph/``), then runs each tree's own serve phase
+(the main path, 64 ticks), kernel_cases, mask_cases, embedding_bag_cases
+and segment_sum_cases in a fresh process, in the order parent, change,
+change, parent, and prints each run's edges/s, tick latency and times
+side by side, with, for the compat cases, whether both change runs beat
+both parent runs.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -86,6 +98,7 @@ MAX_NEW = 8192
 BATCH = 4096
 SLOTS = 8
 REPS = 20                # timed runs per kernel case (median)
+PROFILE_TRIES = 8        # profiler windows a check may take (see _steps)
 # Simple float32 operations (an add) per second: 67 TFLOP/s counts an FMA
 # as two, so one add per lane-cycle is 33.5e12/s.
 FP32_ADDS_PER_S = 33.5e12
@@ -252,6 +265,122 @@ def _host_loop_ms(torch, fn, reps: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its return type, template
+    arguments and parameters: ``void cj_count<Dims<2, 2, 1, 1, true>, 4,
+    true>(CJArgs, int*, int*)`` -> ``cj_count``."""
+    head = key.split("(")[0].split("<")[0].split()
+    return head[-1] if head else key
+
+
+def _steps(torch, fn, want: set, what: str, reps: int = 3):
+    """Device time of one call of ``fn`` by kernel name over ``reps``
+    calls; fails if the call launches any device operation other than the
+    kernels ``want``.  The profiler can drop launches, a short window's
+    all of them included, so a window that misses one of ``want`` is
+    taken again after a short pause (at most ``PROFILE_TRIES`` windows;
+    each kernel's time is from the last window that caught it); a kernel
+    that no window caught has the time None (``_graph_ops`` shows what
+    the call launches without the profiler).  Returns the summed time,
+    the times by kernel and the number of windows taken."""
+    steps = {}
+    for tries in range(1, PROFILE_TRIES + 1):
+        if tries > 1:
+            time.sleep(0.1 * tries)
+        _, by_key = _device_profile(torch, fn, reps)
+        for key, ms in by_key.items():
+            name = _kernel_name(key)
+            if name not in want:
+                fail(f"{what}: device operation {key} besides the kernels "
+                     f"{sorted(want)}")
+            steps[name] = ms
+        if set(steps) == want:
+            break
+    steps = {k: steps.get(k) for k in sorted(want)}
+    return sum(v for v in steps.values() if v is not None), steps, tries
+
+
+def _any_profile(torch, fn, reps: int):
+    """``_device_profile`` of ``fn``, taken again (at most
+    ``PROFILE_TRIES`` windows) while a window catches no device operation
+    at all; the last window's result and the number of windows taken."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        if tries > 1:
+            time.sleep(0.1 * tries)
+        dev_ms, by_key = _device_profile(torch, fn, reps)
+        if by_key:
+            break
+    return dev_ms, by_key, tries
+
+
+def _symbol_name(sym: str) -> str:
+    """A kernel symbol's name: ``_Z8cj_countI4DimsILi2E...`` -> ``cj_count``
+    (Itanium mangling: the length, then the name); a plain name as is."""
+    m = re.match(r"_Z(\d+)", sym)
+    return sym[m.end():m.end() + int(m.group(1))] if m else sym
+
+
+def _graph_ops(torch, fn) -> dict:
+    """The device operations of one call of ``fn``, read without the
+    profiler: the call (after a warm-up call) is captured into a CUDA
+    graph, which is never run, and the graph's nodes are listed with the
+    driver API.  Returns {kernel name: nodes}, other nodes counted as
+    ``graph node type N`` (the driver's ``CUgraphNodeType``)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, call):
+        if rc != 0:
+            fail(f"{call} returned CUDA driver error {rc}")
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    ops = Counter()
+    for node in nodes[:n.value]:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            ops[f"graph node type {kind.value}"] += 1
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_void_p * 16)()
+        check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[0])),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params[7])),
+                  "cuKernelGetName")
+        ops[_symbol_name(name.value.decode())] += 1
+    del graph
+    return dict(ops)
+
+
+def _only_kernels(torch, fn, want: dict, what: str) -> dict:
+    """Fails unless one call of ``fn`` launches exactly the kernels
+    ``want`` ({name: launches}) and no other device operation, as its
+    CUDA graph shows (``_graph_ops``)."""
+    ops = _graph_ops(torch, fn)
+    if ops != want:
+        fail(f"{what}: one call launches {ops}, not {want}")
+    return ops
+
+
 def _table(rng, n_slots, rows, nv, ne, fill, n_vertices, t_hi):
     """A random slot-stacked partial-match table: ``fill`` of the rows
     valid, bindings from ``n_vertices`` ids, timestamps below ``t_hi``."""
@@ -345,10 +474,10 @@ def phase_kernels(torch, seed: int):
     at S = 1 (row 1, a single query's tick)."""
     import numpy as np
 
-    from repro_torch.kernels.compat_join import ops, ref
+    from repro_torch.kernels.compat_join import kernel, ops, ref
 
     rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     results = []
     worst = 0
     cases = [(SLOTS, "", c) for c in _join_cases(rng, SLOTS)]
@@ -360,7 +489,7 @@ def phase_kernels(torch, seed: int):
         args = (*tensors, rel, trel, max_new, window)
         got = ops.compat_join_pairs(*args)
         want = ref.compat_join_pairs(*args)
-        torch.cuda.synchronize()
+        _sync(torch)
         err = 0
         for g, w in zip(got, want):
             if g.shape != w.shape or g.dtype != w.dtype:
@@ -372,6 +501,13 @@ def phase_kernels(torch, seed: int):
         ms = _time_ms(torch, lambda: ops.compat_join_pairs(*args), REPS)
         plain_ms = _time_ms(torch, lambda: ref.compat_join_pairs(*args),
                             REPS)
+        dev_ms, steps, windows = _steps(
+            torch, lambda: ops.compat_join_pairs(*args),
+            {"cj_count", "cj_scan", "cj_emit"}, f"kernel case {name}")
+        graph_ops = _only_kernels(
+            torch, lambda: ops.compat_join_pairs(*args),
+            {"cj_count": 1, "cj_scan": 1, "cj_emit": 1}, f"kernel case {name}")
+        loop_ms = _host_loop_ms(torch, lambda: ops.compat_join_pairs(*args))
         nbytes, nops = _work(tensors, rel, trel, window,
                              n_slots * (2 * max_new + 1) * 4, n_slots)
         bound_ms, bound_by = _bound(nbytes, nops, INT_OPS_PER_S)
@@ -382,7 +518,10 @@ def phase_kernels(torch, seed: int):
             "n_dropped": int(got[3].sum()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "operations": nops,
-            "max_abs_err": err,
+            "max_abs_err": err, "device_ms": dev_ms,
+            "device_ms_by_kernel": steps, "loop_ms": loop_ms,
+            "profile_windows": windows, "graph_ops": graph_ops,
+            "instantiation": _instantiation(kernel, rel, trel),
         })
         worst = max(worst, err)
         del tensors, got, want
@@ -393,6 +532,13 @@ def phase_kernels(torch, seed: int):
     emit({"phase": "kernel_cases", "kernel": "compat_join_pairs",
           "reps": REPS, "cases": results})
     return results, worst
+
+
+def _instantiation(kernel, rel, trel) -> str:
+    """The kernel instantiation the plan picks for this join's shape."""
+    dims = rel.shape + trel.shape
+    return (f"Dims<{', '.join(map(str, dims))}>" if dims in kernel.SHAPES
+            else "runtime dims")
 
 
 def phase_masks(torch, seed: int):
@@ -408,7 +554,7 @@ def phase_masks(torch, seed: int):
     import numpy as np
 
     from repro_torch.core import join
-    from repro_torch.kernels.compat_join import ops, ref
+    from repro_torch.kernels.compat_join import kernel, ops, ref
 
     rng = np.random.default_rng(seed + 1)
     dev = torch.device(DEVICE)
@@ -450,6 +596,11 @@ def phase_masks(torch, seed: int):
         del pairs
         ms = _time_ms(torch, lambda: ops.compat_mask(*args), REPS)
         plain_ms = _time_ms(torch, lambda: ref.compat_mask(*args), REPS)
+        dev_ms, steps, windows = _steps(
+            torch, lambda: ops.compat_mask(*args), {"cj_mask"},
+            f"mask case {name}")
+        graph_ops = _only_kernels(torch, lambda: ops.compat_mask(*args),
+                                  {"cj_mask": 1}, f"mask case {name}")
         nbytes, nops = _work(tensors, rel, trel, window, got.numel(),
                              n_slots)
         bound_ms, bound_by = _bound(nbytes, nops, INT_OPS_PER_S)
@@ -459,7 +610,10 @@ def phase_masks(torch, seed: int):
             "mask_bytes": got.numel(), "set_bits": int(set_bits.sum()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "operations": nops,
-            "max_abs_err": 0,
+            "max_abs_err": 0, "device_ms": dev_ms,
+            "device_ms_by_kernel": steps, "profile_windows": windows,
+            "graph_ops": graph_ops,
+            "instantiation": _instantiation(kernel, rel, trel),
         })
         del tensors, got
         _free(torch)
@@ -707,9 +861,13 @@ def phase_profile(torch, args, stream):
                       if e.device_type == DeviceType.CUDA and _dev_us(e)),
                      key=_dev_us, reverse=True)
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
-    ours = sum(_dev_us(e) for e in kernels if e.key.startswith("cj_")) / 1e3
+    cj = Counter()
+    for e in kernels:
+        if _kernel_name(e.key).startswith("cj_"):
+            cj[_kernel_name(e.key)] += _dev_us(e) / 1e3
     emit({"phase": "profile", "ticks": n_prof, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "compat_join_ms": ours,
+          "device_busy_ms": busy_ms, "compat_join_ms": sum(cj.values()),
+          "compat_join_ms_by_kernel": dict(cj),
           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
           "n_kernel_launches": sum(e.count for e in kernels),
           "top_kernels": [
@@ -746,9 +904,10 @@ def phase_embedding_bag(torch, seed: int):
     a lower precision would break.  Library yardstick: ``F.embedding_bag(mode="sum",
     per_sample_weights=(ids >= 0))`` with bag offsets.  Beside the
     per-call times of ``_time_ms`` (host wrapper + device), the
-    device-only time per call and the device operations per call of the
-    kernel and of the library call, from ``torch.profiler`` (the kernel
-    must be one device operation per call), and the wall time per call
+    device-only time per call of the kernel and of the library call, from
+    ``torch.profiler``, the kernel's device operations per call from a
+    CUDA graph of one call (it must be one eb_bag_sum kernel), and the
+    wall time per call
     of 200 back-to-back calls (``loop_ms``: the host's cost where it is
     the larger)."""
     import numpy as np
@@ -817,14 +976,15 @@ def phase_embedding_bag(torch, seed: int):
         ms = _time_ms(torch, lambda: ops.embedding_bag(*args), REPS)
         plain_ms = _time_ms(torch, lambda: ref.embedding_bag(*args), REPS)
         library_ms = _time_ms(torch, library, REPS)
-        dev_ms, dev_ops = _device_profile(
-            torch, lambda: ops.embedding_bag(*args), REPS)
-        lib_dev_ms, lib_ops = _device_profile(torch, library, REPS)
+        dev_ms, dev_ops, windows = _steps(
+            torch, lambda: ops.embedding_bag(*args), {"eb_bag_sum"},
+            f"embedding_bag case {name}", reps=REPS)
+        graph_ops = _only_kernels(torch, lambda: ops.embedding_bag(*args),
+                                  {"eb_bag_sum": 1},
+                                  f"embedding_bag case {name}")
+        lib_dev_ms, lib_ops, _ = _any_profile(torch, library, REPS)
         host_ms = _host_loop_ms(torch, lambda: ops.embedding_bag(*args))
         lib_host_ms = _host_loop_ms(torch, library)
-        if len(dev_ops) != 1 or "eb_bag_sum" not in next(iter(dev_ops)):
-            fail(f"embedding_bag case {name}: device operations "
-                 f"{list(dev_ops)}, not one eb_bag_sum kernel a call")
         valid = ids[ids >= 0]
         row = table.shape[1] * table.element_size()
         nbytes = 8 * ids.numel() + torch.unique(valid).numel() * row \
@@ -837,7 +997,9 @@ def phase_embedding_bag(torch, seed: int):
             "table_rows": table.shape[0], "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "operations": nops,
-            "device_ms": dev_ms, "device_kernels_per_call": len(dev_ops),
+            "device_ms": dev_ms, "device_kernels_per_call": sum(
+                graph_ops.values()),
+            "profile_windows": windows, "graph_ops": graph_ops,
             "library_device_ms": lib_dev_ms,
             "library_device_kernels_per_call": len(lib_ops),
             "library_device_ops": list(lib_ops),
@@ -1065,7 +1227,7 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
             "tile_counters": walk,
             "tolerance": ("equal" if rtol is None else
                           f"rtol {rtol} + 2 deg 2^-24 sum|msg|")}
-        dev_ms, by_kernel = _device_profile(
+        dev_ms, by_kernel, _ = _any_profile(
             torch, lambda: ops.segment_sum(dst, msg, n), 3)
         row.update(device_ms=dev_ms, device_ms_by_kernel=by_kernel)
         results.append(row)
@@ -1143,7 +1305,7 @@ def phase_gin_infer(torch, seed: int, g, graph_info):
 
 
 _COMPARE_CHILD = """
-import json, os, sys
+import argparse, json, os, sys
 import numpy as np
 import torch
 tree, cache, seed = sys.argv[1], sys.argv[2], int(sys.argv[3])
@@ -1153,6 +1315,10 @@ cs.fail = lambda msg: print(json.dumps({"phase": "check_failed", "msg": msg}),
                             flush=True)
 cs.phase_device(torch)
 cs.phase_build()
+args = argparse.Namespace(ticks=64, parity_ticks=16)
+cs.phase_serve(torch, args, cs.make_stream(seed, args.ticks * cs.BATCH))
+cs.phase_kernels(torch, seed)
+cs.phase_masks(torch, seed)
 cs.phase_embedding_bag(torch, seed)
 g = {k: torch.as_tensor(np.load(os.path.join(cache, k + ".npy")),
                         device="cuda") for k in ("x", "edge_src", "edge_dst")}
@@ -1162,10 +1328,11 @@ cs.phase_segment_sum(torch, seed, g, int(deg.max()))
 
 
 def compare(parent: str, seed: int) -> int:
-    """This tree's embedding_bag and segment_sum cases against
-    ``parent``'s, on one card: parent, change, change, parent, each in a
-    fresh process running its own tree's phases (and kernels) on the
-    same products graph.  A failed check is recorded with its run and
+    """This tree's serving path, its compat-join pair and mask cases and
+    its embedding_bag and segment_sum cases against ``parent``'s, on one
+    card: parent, change, change, parent, each in a fresh process
+    running its own tree's phases (and kernels) on the same stream and
+    products graph.  A failed check is recorded with its run and
     the run goes on (the parent's times stay a yardstick); one in this
     tree's runs fails the comparison."""
     import numpy as np
@@ -1199,6 +1366,9 @@ def compare(parent: str, seed: int) -> int:
                 run["device"] = ph["nvidia_smi"]
             elif ph.get("phase") == "check_failed":
                 run.setdefault("check_failed", []).append(ph["msg"])
+            elif ph.get("phase") == "serve":
+                run["serve"] = {k: ph[k] for k in (
+                    "edges_per_s", "tick_ms_p50", "tick_ms_p99_after_first")}
             elif "cases" in ph:
                 run[ph["kernel"]] = {c["case"]: {
                     k: c.get(k) for k in ("ms", "library_ms", "device_ms")}
@@ -1207,13 +1377,22 @@ def compare(parent: str, seed: int) -> int:
         if side == "change" and "check_failed" in run:
             fail(f"--compare: this tree failed a check: {run['check_failed']}")
         runs.append(run)
+    kernels = ("compat_join_pairs", "compat_mask", "embedding_bag",
+               "segment_sum")
+    ms = {k: {c: [r[k].get(c, {}).get("ms") for r in runs]
+              for c in runs[1][k]} for k in kernels}
+    faster = {k: {c: None not in t and max(t[1:3]) < min(t[0], t[3])
+                  for c, t in ms[k].items()}
+              for k in ("compat_join_pairs", "compat_mask")}
     emit({"phase": "compare", "order": [r["side"] for r in runs],
-          "ms": {k: {c: [r[k].get(c, {}).get("ms") for r in runs]
-                     for c in runs[1][k]}
-                 for k in ("embedding_bag", "segment_sum")},
+          "serve": [r.get("serve") for r in runs], "ms": ms,
+          "device_ms": {k: {c: [r[k].get(c, {}).get("device_ms")
+                                for r in runs] for c in runs[1][k]}
+                        for k in kernels},
           "library_ms": {k: {c: [r[k].get(c, {}).get("library_ms")
                                  for r in runs] for c in runs[1][k]}
-                         for k in ("embedding_bag", "segment_sum")}})
+                         for k in ("embedding_bag", "segment_sum")},
+          "change_faster_in_both_runs": faster})
     return 0
 
 

@@ -4,9 +4,10 @@ CUDA device).  Run on a GPU machine with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 The compat-join kernels must agree with their plain versions element for
-element (pairs in row-major order, overflow included; masks byte for
-byte), and a CUDA-backend slot group must tick bit-identically to the
-REF backend on the card.  The embedding_bag and segment_sum kernels sum
+element (pairs in row-major order, overflow included, also where
+``max_new`` falls on and inside a (row, B tile) cell; masks byte for
+byte, ragged rows and tiny tables included), and a CUDA-backend slot
+group must tick bit-identically to the REF backend on the card.  The embedding_bag and segment_sum kernels sum
 in float32 in another order than their plain versions: float32 within
 rtol 1e-5 / atol 1e-5, bfloat16 within one bfloat16 rounding (rtol 1e-2
 / atol 1e-2).  The segment_sum edge cases (a hub node with 40% of the
@@ -179,6 +180,151 @@ def test_mask_kernel_equals_plain_version(cuda, n_slots, ca, cb, window,
     torch.cuda.synchronize()
     assert got.dtype == torch.bool and torch.equal(got, want)
     assert bool(got.any())
+
+
+# (rel, trel) per plan shape for the edge cases: a few "must equal" pairs,
+# both timing orders
+CJ_SPECS = {
+    (2, 2, 1, 1): (np.array([[False, False], [True, False]]),
+                   np.array([[-1]], np.int8)),
+    (3, 2, 2, 1): (np.array([[False, False], [False, False], [True, False]]),
+                   np.array([[0], [-1]], np.int8)),
+    (5, 3, 2, 2): (np.eye(5, 3, dtype=bool) * np.array([1, 0, 1], bool),
+                   np.array([[-1, 0], [0, 1]], np.int8)),
+}
+
+# name, slots, CA, CB, dims, vertex ids
+CJ_EDGE_CASES = [
+    ("cb_17", 3, 300, 17, (3, 2, 2, 1), 12),     # below 32, 16 and TB
+    ("cb_1030_two_a_tiles", 2, 1500, 1030, (2, 2, 1, 1), 20),
+    ("ca_1", 4, 1, 3000, (2, 2, 1, 1), 4),
+    ("all_a_invalid", 2, 700, 900, (2, 2, 1, 1), 4),
+    ("b_tile_without_valid_rows", 2, 600, 2600, (2, 2, 1, 1), 6),
+    ("off_list_nva_5", 2, 500, 700, (5, 3, 2, 2), 60),
+    ("window_wraps_int32", 3, 400, 600, (2, 2, 1, 1), 4),
+]
+
+
+def _cj_case(cuda, case, n_slots, ca, cb, dims, n_v, shared_b, window):
+    rng = np.random.default_rng(ca * 7 + cb)
+    nva, nvb, nea, neb = dims
+    lead_b = () if shared_b else (n_slots,)
+    ea = rng.integers(0, 60, (n_slots, ca, nea))
+    eb = rng.integers(20, 80, lead_b + (cb, neb))
+    if case == "window_wraps_int32":
+        # A just above INT32_MIN, B just below INT32_MAX: a < b holds and
+        # the span max - min wraps to a negative int32, below any window
+        ea, eb = ea - 2**31, eb + 2**31 - 100
+    va = rng.random((n_slots, ca)) < 0.7
+    vb = rng.random((n_slots, cb)) < 0.7
+    if case == "all_a_invalid":
+        va[:] = False
+    if case == "b_tile_without_valid_rows":
+        vb[:, 1024:2048] = False             # the second tile of 1024
+    args = [torch.as_tensor(x, device=cuda) for x in (
+        rng.integers(0, n_v, (n_slots, ca, nva), dtype=np.int32),
+        ea.astype(np.int32), va,
+        rng.integers(0, n_v, lead_b + (cb, nvb), dtype=np.int32),
+        eb.astype(np.int32), vb)]
+    win = None if window is None else torch.as_tensor(
+        np.full((n_slots,), window, np.int32), device=cuda)
+    return args, win
+
+
+def _pairs_equal_plain(args, rel, trel, max_new, win):
+    before = ops.compat_join_pairs.launches
+    got = ops.compat_join_pairs(*args, rel, trel, max_new, win)
+    assert ops.compat_join_pairs.launches == before + 1
+    want = ref.compat_join_pairs(*args, rel, trel, max_new, win)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("shared_b", [False, True])
+@pytest.mark.parametrize("case,n_slots,ca,cb,dims,n_v", CJ_EDGE_CASES,
+                         ids=[c[0] for c in CJ_EDGE_CASES])
+def test_compat_kernels_edge_cases(cuda, case, n_slots, ca, cb, dims, n_v,
+                                   shared_b, window):
+    """The pair kernels element for element and the mask kernel byte for
+    byte against their plain versions: ragged and tiny tables (the mask's
+    masked tail: rows of 17 and 1030 bytes start off the 16-byte grid),
+    CA = 1, no valid A row, a B tile without a valid row, a shape off the
+    instantiation list, a window whose span wraps in int32; shared and
+    slot-stacked B, with and without a window."""
+    rel, trel = CJ_SPECS[dims]
+    args, win = _cj_case(cuda, case, n_slots, ca, cb, dims, n_v, shared_b,
+                         window)
+    got = _pairs_equal_plain(args, rel, trel, 4096, win)
+    before = ops.compat_mask.launches
+    mask = ops.compat_mask(*args, rel, trel, win)
+    assert ops.compat_mask.launches == before + 1
+    want = ref.compat_mask(*args, rel, trel, win)
+    torch.cuda.synchronize()
+    assert mask.dtype == torch.bool and torch.equal(mask, want)
+    if case == "all_a_invalid":
+        assert not bool(got[2].any()) and not bool(mask.any())
+    else:
+        assert bool(got[2].any())
+    if case == "window_wraps_int32" and window is not None:
+        # the spans wrap: without the int32 arithmetic nothing would match
+        assert bool(mask.any())
+
+
+@pytest.mark.parametrize("where", ["on_cell_start", "inside_cell",
+                                   "on_cell_end"])
+def test_pair_kernel_overflow_at_cell_boundaries(cuda, where):
+    """max_new exactly where a (row, B tile) cell's pairs start, inside
+    that cell, and where they end: the kept pairs are the row-major
+    prefix and n_dropped is exact."""
+    from repro_torch.kernels.compat_join import kernel as cj_kernel
+
+    rel, trel = CJ_SPECS[(2, 2, 1, 1)]
+    args, _ = _cj_case(cuda, "overflow", 2, 1300, 2100, (2, 2, 1, 1), 3,
+                       True, None)
+    tb = cj_kernel.plan(cj_kernel.PAIRS, 2, 1300, 2100, 2, 2, 1, 1,
+                        (True,) * 3 + (False, False, True), False, 1).tb
+    mask = ref.compat_mask(*args, rel, trel)[1].cpu().numpy()
+    cells = np.stack([mask[:, i:i + tb].sum(1)
+                      for i in range(0, 2100, tb)], 1).reshape(-1)
+    start = np.concatenate([[0], np.cumsum(cells)])
+    c = np.flatnonzero(cells > 2)[len(cells) // 3 % (cells > 2).sum()]
+    max_new = int({"on_cell_start": start[c], "inside_cell": start[c] + 1,
+                   "on_cell_end": start[c + 1]}[where])
+    got = _pairs_equal_plain(args, rel, trel, max_new, None)
+    assert int(got[3][1]) == int(mask.sum()) - max_new > 0
+
+
+def test_pair_call_launches_only_its_kernels(cuda):
+    """One pair call is count, scan and emit and no other device
+    operation (the outputs come straight from the kernels); one mask call
+    is one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rel, trel = CJ_SPECS[(2, 2, 1, 1)]
+    args, win = _cj_case(cuda, "profile", 8, 4096, 1024, (2, 2, 1, 1), 20,
+                         True, 40)
+    ops.compat_join_pairs(*args, rel, trel, 512, win)      # build, warm up
+    ops.compat_mask(*args, rel, trel, win)
+    torch.cuda.synchronize()
+    for fn, names in ((lambda: ops.compat_join_pairs(*args, rel, trel, 512,
+                                                     win),
+                       {"cj_count", "cj_scan", "cj_emit"}),
+                      (lambda: ops.compat_mask(*args, rel, trel, win),
+                       {"cj_mask"})):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        found = {n for n in names if any(n in k for k in keys)}
+        assert len(keys) == len(names) and found == names, keys
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

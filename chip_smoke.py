@@ -36,6 +36,26 @@ exit, nothing is caught and skipped):
                 matches, stats and every table leaf identical;
   profile       torch.profiler over the last ticks of a second CUDA
                 serve: device time by kernel and the device's idle share;
+  session       the public api (repro_torch.api.StreamSession) on the
+                card with cross-tenant prefix sharing: 16 Pattern-DSL
+                tenants in two families of 8 that share a timed 2-edge
+                prefix (one depth-1 and one depth-2 forest node per
+                family, each aliased by 8 tenants; the prefix nodes'
+                joins are the pair kernel at S = 1, the slot groups' L0
+                joins read the shared prefix view as a shared operand),
+                the serve phase's capacities, batches and stream; checks:
+                overflow 0, the same per-tenant matches with sharing on
+                and off, equality with a REF session over the parity
+                ticks (tables included), a crash after tick 40 restored
+                from the newest checkpoint (step 32; checkpoints every
+                16 ticks) replaying exactly once, with zero tick builds
+                in the warm cache and again from a cold cache, and a
+                forest advance's CUDA graph holding cj_count, cj_scan
+                and cj_emit once each per child node; prints edges/s
+                and tick p50/p99 with sharing on and off, forest_stats,
+                prefix-node ticks per tick, the checkpoint's bytes,
+                publish ms and write ms, restore seconds, and pair
+                launches per tick by slot count;
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
@@ -54,11 +74,11 @@ exit, nothing is caught and skipped):
                 against the plain-version forward.
 
 Each path's kernel launch counter is zeroed just before the path is
-driven and read just after (serve, each mask case's entry-point call,
-recsys_serve, gin_infer).  Then a {"kernels": [...]} line, and the last
-line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the repository beside this script, it exits non-zero and prints
-no result.
+driven and read just after (serve, session, each mask case's
+entry-point call, recsys_serve, gin_infer).  Then a {"kernels": [...]}
+line, and the last line is {"ok": true, "device": {...}}.  Without a
+CUDA device, or without the repository beside this script, it exits
+non-zero and prints no result.
 
 ``--compare PARENT_TREE`` instead holds this tree's kernels against
 another checkout's (e.g. ``git archive`` of the parent commit unpacked
@@ -876,6 +896,352 @@ def phase_profile(torch, args, stream):
 
 
 # --------------------------------------------------------------------- #
+# session: the stateful serving stack through the public api
+# --------------------------------------------------------------------- #
+SESSION_WINDOWS = (WINDOW_BASE, WINDOW_BASE + 3500)
+SESSION_CKPT_EVERY = 16
+SESSION_CRASH_TICK = 40
+
+
+# A family: the hub label index of a, the light label indices of b and c
+# (the prefix a -e0-> b -e1-> c); the third edge c -> d varies over edge
+# labels 2 and 3 and four light labels of d.  Chosen on the host from the
+# seeded stream so that no join keeps more than ~1,200 of its 8,192 pairs
+# a tick and no table holds more than ~2,300 of its 65,536 rows: an
+# untimed third edge over the common labels multiplies matches past
+# max_new (a first chip run of this phase dropped 472,267 appends).
+SESSION_FAMILIES = ((0, 1, 2), (1, 0, 1))
+
+
+def session_patterns(stream):
+    """16 ``Pattern`` DSL tenants in two families of 8.  A family's
+    patterns share a timed 2-edge prefix a->b->c (e0 before e1) and its
+    window, and differ in a third edge c->d (its label and d's label)
+    that is not timed against the prefix: the planner makes the prefix
+    subquery 0 (shared: one depth-1 and one depth-2 forest node per
+    family, each aliased by its 8 tenants) and the third edge a second
+    subquery joined in L0 — where the slot groups read the shared prefix
+    view as a shared join operand.  Join vertices (b, c) take labels
+    outside the busiest vertices' labels, as ``tenants()`` picks them."""
+    from repro_torch.api import Pattern
+
+    n_l = STREAM["n_vertex_labels"]
+    heavy = hub_labels(stream, N_HUBS)
+    light = [lab for lab in range(n_l) if lab not in heavy]
+    if len(light) < 4:
+        fail(f"{n_l} vertex labels leave < 4 outside the hubs' {heavy}")
+    out = []
+    for fam, (window, (ia, ib, ic)) in enumerate(
+            zip(SESSION_WINDOWS, SESSION_FAMILIES)):
+        for k in range(8):
+            p = (Pattern(f"fam{fam}-v{k}")
+                 .vertex("a", label=heavy[ia % len(heavy)])
+                 .vertex("b", label=light[ib])
+                 .vertex("c", label=light[ic])
+                 .vertex("d", label=light[k % 4])
+                 .edge("a", "b", label=1)
+                 .edge("b", "c", label=2)
+                 .edge("c", "d", label=2 + k // 4)
+                 .before(0, 1)
+                 .window(window))
+            out.append(p)
+    return out
+
+
+def _session(backend, share, tick_cache, ckpt_dir=None):
+    from repro_torch.api import StreamSession
+
+    return StreamSession(
+        slots_per_group=SLOTS, level_capacity=LEVEL_CAP,
+        l0_capacity=LEVEL_CAP, max_new=MAX_NEW, backend=backend,
+        ckpt_dir=ckpt_dir, tick_cache=tick_cache, share_prefixes=share,
+        device=DEVICE)
+
+
+class _Reports:
+    """Per-tenant typed matches, each tagged with its tick; optionally
+    snapshots the session's tables at one tick."""
+
+    def __init__(self, sess, snapshot_tick=None):
+        self.sess = sess
+        self.rows = []                 # (tick, qid, Match)
+        self._pending = []
+        self.infos = []
+        self.snapshot_tick = snapshot_tick
+        self.snap = None
+
+    def on_match_for(self, qid):
+        return lambda m: self._pending.append((qid, m))
+
+    def on_tick(self, info):
+        self.infos.append(info)
+        self.rows += [(info.tick, q, m) for q, m in self._pending]
+        self._pending.clear()
+        if info.tick == self.snapshot_tick:
+            self.snap = _session_tables(self.sess)
+
+    def multiset(self, upto=None):
+        return Counter((q, m) for t, q, m in self.rows
+                       if upto is None or t <= upto)
+
+
+def _session_tables(sess):
+    """Host copies of every forest node state and tenant state."""
+    from repro_torch.core.state import state_to_numpy
+
+    svc = sess.service
+    nodes = [] if svc.forest is None else [
+        ((n.pid, n.depth, n.epoch, n.refcount), state_to_numpy(n.state))
+        for n in svc.forest.nodes()]
+    return nodes, {q: state_to_numpy(svc.state(q))
+                   for q in svc.registry.qids()}
+
+
+def _flat(t):
+    if isinstance(t, tuple):
+        return [x for v in t for x in _flat(v)]
+    return [t]
+
+
+def _same_tables(a, b) -> int:
+    """Fails unless two ``_session_tables`` snapshots are identical;
+    returns the number of leaves compared."""
+    import numpy as np
+
+    (na, qa), (nb, qb) = a, b
+    if [k for k, _ in na] != [k for k, _ in nb] or sorted(qa) != sorted(qb):
+        fail("session: forest nodes or tenants differ")
+    n = 0
+    for x, y in [(x, y) for (_, sa), (_, sb) in zip(na, nb)
+                 for x, y in zip(_flat(sa), _flat(sb))] + \
+            [(x, y) for q in qa for x, y in zip(_flat(qa[q]), _flat(qb[q]))]:
+        if x.shape != y.shape or not np.array_equal(x, y):
+            fail("session: a table leaf differs")
+        n += 1
+    return n
+
+
+def _serve_session(sess, patterns, edges, reports, **serve):
+    """Register ``patterns`` (first call) and serve ``edges``; returns
+    the wall seconds of the serve."""
+    import torch
+
+    if not sess.subscriptions():
+        for p in patterns:
+            sub = sess.register(p)
+            sub.on_match = reports.on_match_for(sub.qid)
+    _sync(torch)
+    t0 = time.perf_counter()
+    sess.serve(edges, on_tick=reports.on_tick, batch_size=BATCH,
+               min_batch=BATCH, max_batch=BATCH, **serve)
+    _sync(torch)
+    return time.perf_counter() - t0
+
+
+def _timing(sharing, n_edges, wall, infos):
+    lat = [i.latency_ms for i in infos]
+    return {"sharing": sharing, "edges_per_s": n_edges / wall,
+            "wall_s": wall, "tick_ms_p50": _pctl(lat, 0.5),
+            "tick_ms_p99": _pctl(lat, 0.99), "tick_ms_first": lat[0],
+            "tick_ms_p99_after_first": _pctl(lat[1:], 0.99)}
+
+
+def _advance_graph_ops(torch, forest, batch):
+    """Device operations of one forest advance (every node's tick, as
+    ``SharedPrefixForest.advance`` runs them, the results thrown away so
+    the captured calls leave the forest as it was): a CUDA graph of one
+    call (``_graph_ops``)."""
+    order = sorted(forest.nodes(), key=lambda n: (n.depth, n.pid))
+
+    def advance():
+        views = {}
+        for n in order:
+            if n.parent is None:
+                _, views[n.pid], _ = n.tick(n.state, batch, n.esl, n.edl,
+                                            n.eel, n.window)
+            else:
+                _, views[n.pid], _ = n.tick(
+                    n.state, batch, views[n.parent.pid], n.esl, n.edl,
+                    n.eel, n.window)
+
+    return _graph_ops(torch, advance), sum(n.parent is not None
+                                           for n in order)
+
+
+def phase_session(torch, args, stream):
+    """The public api on the card: ``StreamSession`` with prefix sharing
+    over the CUDA backend, checked against an unshared CUDA session, a
+    REF session over the parity prefix, a crash after tick 40 restored
+    from the newest checkpoint (warm and cold tick caches), and the
+    device operations of a prefix-node tick."""
+    import tempfile
+
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.core.state import make_batch
+    from repro_torch.kernels.compat_join import ops
+    from repro_torch.stream.generator import to_batches
+
+    patterns = session_patterns(stream)
+    n_ticks = len(stream) // BATCH
+    crash = min(SESSION_CRASH_TICK, n_ticks - 1)
+    tc = SlotTickCache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+
+    # -- A: shared, CUDA, uninterrupted (the path whose launches count) --
+    sess_a = _session(None, True, tc, os.path.join(tmp, "a"))
+    rep_a = _Reports(sess_a, snapshot_tick=args.parity_ticks)
+    _free(torch)
+    _reset_peak(torch)
+    ops.compat_join_pairs.launches = 0          # counts of the session path
+    ops.compat_join_pairs.launches_by_slots.clear()
+    wall_a = _serve_session(sess_a, patterns, stream, rep_a)
+    launches = ops.compat_join_pairs.launches
+    by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+    peak_a = _peak_gib(torch)
+    svc_a = sess_a.service
+    if svc_a.backend != ("cuda" if DEVICE == "cuda" else "ref"):
+        fail(f"the session's default backend is {svc_a.backend}, not cuda")
+    fs = svc_a.forest_stats()
+    shared_nodes = [n for n in svc_a.forest.nodes() if n.refcount > 1]
+    if fs.n_nodes != 4 or len(shared_nodes) != 4 \
+            or any(n.refcount != 8 for n in shared_nodes):
+        fail(f"session: forest {fs} is not one depth-1 and one depth-2 "
+             "node per family, each aliased by 8 tenants")
+    if not by_slots.get(1) or not by_slots.get(SLOTS):
+        fail(f"session: pair launches by slot count {by_slots}: need "
+             f"S = 1 (prefix nodes) and S = {SLOTS} (slot groups)")
+    overflow_a = svc_a.overflow_pressure()
+    reports_a = rep_a.multiset()
+    if overflow_a or any(i.n_overflow for i in rep_a.infos):
+        fail(f"session: overflow {overflow_a} with sharing on")
+    if not reports_a:
+        fail("session: no matches with sharing on")
+    node_ticks = [i.n_shared_prefix_ticks for i in rep_a.infos]
+
+    # -- B: unshared, CUDA -------------------------------------------------
+    sess_b = _session(None, False, SlotTickCache())
+    rep_b = _Reports(sess_b)
+    wall_b = _serve_session(sess_b, patterns, stream, rep_b)
+    if sess_b.service.overflow_pressure():
+        fail("session: overflow with sharing off")
+    if rep_b.multiset() != reports_a:
+        fail("session: per-tenant matches differ with sharing on and off")
+    timing = [_timing(True, len(stream), wall_a, rep_a.infos),
+              _timing(False, len(stream), wall_b, rep_b.infos)]
+    # a second turn of each, fresh sessions on warm caches: shared,
+    # unshared, shared, unshared (host noise between the two)
+    cache_b = sess_b.service.tick_cache
+    del sess_b
+    for share, cache in ((True, tc), (False, cache_b)):
+        sess_t = _session(None, share, cache)
+        rep_t = _Reports(sess_t)
+        wall_t = _serve_session(sess_t, patterns, stream, rep_t)
+        if rep_t.multiset() != reports_a:
+            fail("session: a second run's matches differ")
+        timing.append(_timing(share, len(stream), wall_t, rep_t.infos))
+        del sess_t
+    _free(torch)
+
+    # -- C: REF over the parity prefix, tables included ---------------------
+    sess_c = _session("ref", True, SlotTickCache())
+    rep_c = _Reports(sess_c, snapshot_tick=args.parity_ticks)
+    wall_c = _serve_session(sess_c, patterns,
+                            stream[:args.parity_ticks * BATCH], rep_c)
+    if rep_c.multiset() != rep_a.multiset(upto=args.parity_ticks):
+        fail("session: REF and CUDA matches differ over the parity ticks")
+    n_leaves = _same_tables(rep_a.snap, rep_c.snap)
+    del sess_c
+    _free(torch)
+
+    # -- the prefix-node tick's device operations ---------------------------
+    batch = make_batch(**to_batches(stream[:BATCH], BATCH)[0], device=DEVICE)
+    graph, n_child = _advance_graph_ops(torch, svc_a.forest, batch)
+    cj = {k: v for k, v in graph.items() if k.startswith("cj_")}
+    if cj != {"cj_count": n_child, "cj_scan": n_child, "cj_emit": n_child}:
+        fail(f"session: a forest advance launches {cj}, not cj_count, "
+             f"cj_scan, cj_emit once each for its {n_child} child nodes")
+
+    # -- checkpoint: bytes, synchronous publish, async write ---------------
+    publish_ms, write_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sess_a.checkpoint()
+        publish_ms.append((time.perf_counter() - t0) * 1e3)
+        sess_a.close()
+        write_ms.append(svc_a.ckpt.last_write_s * 1e3)
+    step = svc_a._ckpt_step
+    ckpt_bytes = os.path.getsize(os.path.join(tmp, "a", f"step_{step}.npz"))
+
+    # -- D: crash after tick 40, restore, replay -----------------------------
+    from repro_torch.api import StreamSession
+
+    dir_d = os.path.join(tmp, "d")
+    sess_d = _session(None, True, tc, dir_d)
+    rep_d = _Reports(sess_d)
+    _serve_session(sess_d, patterns, stream[:crash * BATCH], rep_d,
+                   ckpt_every=SESSION_CKPT_EVERY, final_checkpoint=False)
+    sess_d.close()
+    del sess_d                                   # the crash
+    _free(torch)
+    restored = {}
+    for name, cache in (("warm", tc), ("cold", SlotTickCache())):
+        builds = cache.n_builds
+        _sync(torch)
+        t0 = time.perf_counter()
+        sess_r = StreamSession.restore(dir_d, tick_cache=cache,
+                                       device=DEVICE)
+        _sync(torch)
+        secs = time.perf_counter() - t0
+        svc_r = sess_r.service
+        step_r = svc_r.n_ticks
+        want_step = (crash // SESSION_CKPT_EVERY) * SESSION_CKPT_EVERY
+        if step_r != want_step:
+            fail(f"session: restored at tick {step_r}, not {want_step}")
+        if name == "warm" and cache.n_builds != builds:
+            fail(f"session: a warm restore built "
+                 f"{cache.n_builds - builds} ticks")
+        rep_r = _Reports(sess_r)
+        for sub in sess_r.subscriptions():
+            sub.on_match = rep_r.on_match_for(sub.qid)
+        _serve_session(sess_r, patterns,
+                       stream[sess_r.resume_offset:], rep_r)
+        kept = rep_d.multiset(upto=step_r)
+        once = kept + Counter({(q, m): c for (q, m), c in
+                               rep_r.multiset().items()})
+        if once != reports_a:
+            fail(f"session: {name} restore + replay is not exactly once "
+                 f"({sum(once.values())} reports vs "
+                 f"{sum(reports_a.values())})")
+        restored[name] = {"seconds": secs, "step": step_r,
+                          "tick_builds": cache.n_builds - builds}
+        del sess_r, svc_r
+        _free(torch)
+
+    out = {
+        "phase": "session", "tenants": len(patterns), "ticks": n_ticks,
+        "slots_per_group": SLOTS, "level_capacity": LEVEL_CAP,
+        "max_new": MAX_NEW, "batch": BATCH, "backend": svc_a.backend,
+        "timing": timing,
+        "forest_stats": fs._asdict(),
+        "prefix_node_ticks_per_tick": sorted(set(node_ticks)),
+        "groups": len(svc_a._iter_groups()),
+        "matches_total": sum(reports_a.values()), "n_overflow": overflow_a,
+        "compat_join_launches": launches,
+        "compat_join_launches_per_tick_by_slots": {
+            str(s): n / n_ticks for s, n in sorted(by_slots.items())},
+        "forest_advance_graph": graph, "child_nodes": n_child,
+        "parity": {"ticks": args.parity_ticks, "state_leaves_equal":
+                   n_leaves, "ref_wall_s": wall_c},
+        "checkpoint": {"step": step, "bytes": ckpt_bytes,
+                       "publish_ms": publish_ms, "write_ms": write_ms},
+        "restore": restored, "crash_after_tick": crash,
+        "peak_mem_gib": peak_a,
+    }
+    emit(out)
+    return out, launches, by_slots
+
+
+# --------------------------------------------------------------------- #
 # substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
 # --------------------------------------------------------------------- #
 def _pctl(xs, q: float) -> float:
@@ -1434,7 +1800,11 @@ def main(argv=None) -> int:
     serve, qids, matches, snap, launches = phase_serve(torch, args, stream)
     phase_parity(torch, args, stream, qids, matches, snap)
     phase_profile(torch, args, stream)
-    del stream, qids, matches, snap
+    del qids, matches, snap
+    _free(torch)
+    _, session_launches, session_by_slots = phase_session(torch, args,
+                                                          stream)
+    del stream
     _free(torch)
     bags = phase_embedding_bag(torch, args.seed)
     _, bag_launches = phase_recsys_serve(torch, args.seed)
@@ -1459,7 +1829,10 @@ def main(argv=None) -> int:
     emit({"kernels": [
         entry("compat_join_pairs", KERNEL_SOURCES["compat_join"], f"{cj}:454",
               launches, cases, "level_window", also_replaces=f"{cj}:405",
-              launches_path="serve", tolerance="equal"),
+              launches_path="serve", launches_session=session_launches,
+              launches_session_by_slots={
+                  str(k): v for k, v in sorted(session_by_slots.items())},
+              tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",
               launches_path="core.join.compat_mask over the mask cases",

@@ -27,9 +27,14 @@ Static-size idioms of the reference and their torch form:
     in int32 and wraps as the reference does.
 Nothing in the tick reads a value back to the host.
 
-Left out (later slices; they raise ``NotImplementedError``): capacity
-sharding (``axis_name``/``n_shards``) and shared prefixes
-(``prefix_depth > 0``).
+Shared prefixes (``prefix_depth > 0``, ``repro_torch.core.share``): the
+prefix table's per-tick view is ONE table for every slot, passed without
+a slot axis; the joins take it as a shared operand (slot stride 0 in the
+CUDA kernel) and the gathers index it directly, so it is never copied
+per slot.
+
+Left out (the mesh slice; it raises ``NotImplementedError``): capacity
+sharding (``axis_name``/``n_shards``).
 """
 
 from __future__ import annotations
@@ -67,17 +72,24 @@ class TickResult(NamedTuple):
 
 
 class _View(NamedTuple):
-    """Denormalized view of a table: what joins consume."""
+    """Denormalized view of a table: what joins consume.  ``shared``: one
+    table for every slot (the shared prefix view), its leaves without the
+    slot axis."""
 
-    bind: torch.Tensor   # int32 [S, C, nv]
-    ets: torch.Tensor    # int32 [S, C, ne]
-    valid: torch.Tensor  # bool [S, C]
-    fresh: torch.Tensor  # bool [S, C]
+    bind: torch.Tensor   # int32 [S, C, nv]  (shared: [C, nv])
+    ets: torch.Tensor    # int32 [S, C, ne]  (shared: [C, ne])
+    valid: torch.Tensor  # bool [S, C]       (shared: [C])
+    fresh: torch.Tensor  # bool [S, C]       (shared: [C])
+    shared: bool = False
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _rows(x: torch.Tensor, idx: torch.Tensor,
+          shared: bool = False) -> torch.Tensor:
     """Per slot, gather rows ``idx`` (int64 [S, M], clamped into range
-    like ``take(mode="clip")``) of ``x`` [S, C, ...] -> [S, M, ...]."""
+    like ``take(mode="clip")``) of ``x`` [S, C, ...] -> [S, M, ...].  A
+    ``shared`` ``x`` [C, ...] is one table for every slot."""
+    if shared:
+        return x[idx.clamp(0, max(x.shape[0] - 1, 0))]
     idx = idx.clamp(0, max(x.shape[1] - 1, 0))
     ar = torch.arange(x.shape[0], device=x.device)[:, None]
     return x[ar, idx]
@@ -92,7 +104,10 @@ def _scatter_rows(dst: torch.Tensor, slots: torch.Tensor, ok: torch.Tensor,
     ext = torch.cat([dst, dst[:, :1]], dim=1)
     idx = torch.where(ok, slots, torch.full_like(slots, c))
     ar = torch.arange(s, device=dst.device)[:, None]
-    vals = torch.as_tensor(vals, dtype=dst.dtype, device=dst.device)
+    if torch.is_tensor(vals):
+        vals = vals.to(dst.dtype)
+    else:           # a constant: filled on the device, never copied over
+        vals = torch.full((), vals, dtype=dst.dtype, device=dst.device)
     ext[ar, idx] = vals.expand(idx.shape + dst.shape[2:])
     return ext[:, :c]
 
@@ -138,7 +153,15 @@ def _append_l0(table: L0Table, bindings, ets, req_valid):
 
 def _compact(view: _View, mask, size: int):
     """Gather up to ``size`` rows of ``view`` where ``mask`` [S, C], per
-    slot; returns a _View of static size plus the overflow count [S]."""
+    slot; returns a _View of static size plus the overflow count [S].  A
+    shared view (mask [C]) compacts once, into a shared view (count
+    [1])."""
+    if view.shared:
+        out, safe, n_drop = _compact(
+            _View(view.bind[None], view.ets[None], view.valid[None],
+                  view.fresh[None]), mask[None], size)
+        return (_View(out.bind[0], out.ets[0], out.valid[0], out.fresh[0],
+                      shared=True), safe[0], n_drop)
     idx = J.first_true(mask, size)
     ok = idx >= 0
     safe = idx.clamp(min=0)
@@ -184,23 +207,35 @@ def build_tick_body(
     """Compile the *structural* part of ``plan`` into a tick body.
 
     Returns ``body(state, batch, ematch, window, watermark=None,
-    valid=None) -> (state, TickResult)`` over S slots: ``state`` leaves
-    carry a leading ``[S]`` axis, ``batch`` is the shared stream batch
-    ``[B]``, ``ematch`` the ``[S, n_qedges, B]`` label-match mask (see
-    ``edge_match_mask``), ``window`` int32 ``[S]``, ``valid`` the per-slot
-    batch validity ``[S, B]`` (default: ``batch.valid`` for every slot)
-    and ``watermark`` None (processing-time clock) or an int32 scalar
-    (event-time clock).  Everything the body closes over — layouts,
-    REL/TREL, capacities — depends only on the query's structure.
+    valid=None, prefix_view=None) -> (state, TickResult)`` over S slots:
+    ``state`` leaves carry a leading ``[S]`` axis, ``batch`` is the shared
+    stream batch ``[B]``, ``ematch`` the ``[S, n_qedges, B]`` label-match
+    mask (see ``edge_match_mask``), ``window`` int32 ``[S]``, ``valid``
+    the per-slot batch validity ``[S, B]`` (default: ``batch.valid`` for
+    every slot) and ``watermark`` None (processing-time clock) or an
+    int32 scalar (event-time clock).  Everything the body closes over —
+    layouts, REL/TREL, capacities — depends only on the query's
+    structure.
+
+    With ``prefix_depth > 0`` the first ``prefix_depth`` levels of
+    subquery 0 live in a shared prefix table advanced by the forest
+    (``repro_torch.core.share``): ``state`` holds only subquery 0's
+    suffix levels (``init_state(plan, prefix_depth=...)``) and
+    ``prefix_view`` is the table's post-append ``NodeView`` for this tick
+    (bind/ets/valid/fresh/valid_after, no slot axis).  It seeds subquery
+    0's reconstruction chain exactly where the local level
+    ``prefix_depth - 1`` view would have, and end-of-tick expiry
+    cascades from its ``valid_after``.
     """
     if axis_name is not None or n_shards != 1:
         raise NotImplementedError(
-            "capacity sharding (axis_name / n_shards) is a later slice of "
-            "the port")
+            "capacity sharding (axis_name / n_shards) is the mesh slice "
+            "of the port")
     if prefix_depth:
-        raise NotImplementedError(
-            "shared prefixes (prefix_depth > 0) are a later slice of the "
-            "port")
+        if not (0 < prefix_depth <= len(plan.subqueries[0].levels)):
+            raise ValueError(
+                f"prefix_depth {prefix_depth} out of range for subquery 0 "
+                f"({len(plan.subqueries[0].levels)} levels)")
     max_out = max_out or max(js.max_new for js in plan.l0_joins) \
         if plan.l0_joins \
         else (max_out or plan.subqueries[0].levels[-1].max_new)
@@ -228,20 +263,24 @@ def build_tick_body(
     nv_final = len(plan.final_vertex_layout)
     ne_final = len(plan.final_edge_layout)
 
-    def _expire(levels, l0, lo):
+    def _expire(levels, l0, lo, prefix_valid_after=None):
         """End-of-tick deletion (paper §4.2): level-ordered top-down
         cascade over MS-tree parent pointers; L0 rows checked directly
-        on their per-edge timestamps.  ``lo`` is int32 [S]."""
+        on their per-edge timestamps.  ``lo`` is int32 [S].  With a
+        shared prefix, subquery 0's first kept level cascades from the
+        prefix table's post-expiry validity (shared, [C])."""
         new_levels = []
-        for sub in levels:
+        for si, sub in enumerate(levels):
             out = []
-            prev_valid = None
+            prev_valid = prefix_valid_after if si == 0 else None
+            prev_shared = prev_valid is not None
             for t in sub:
                 v = t.valid & (t.ts > lo[:, None])
                 if prev_valid is not None:
-                    v = v & _rows(prev_valid, t.parent.clamp(min=0).long())
+                    v = v & _rows(prev_valid, t.parent.clamp(min=0).long(),
+                                  prev_shared)
                 out.append(t._replace(valid=v))
-                prev_valid = v
+                prev_valid, prev_shared = v, False
             new_levels.append(tuple(out))
         new_l0 = tuple(
             t._replace(valid=t.valid & (t.ets > lo[:, None, None]).all(dim=2))
@@ -250,7 +289,7 @@ def build_tick_body(
         return tuple(new_levels), new_l0
 
     def body(state: EngineState, batch: EdgeBatch, ematch, window,
-             watermark=None, valid=None):
+             watermark=None, valid=None, prefix_view=None):
         # -- 0. advance time; clear last tick's fresh marks ------------ #
         # Expiry is deferred to the END of the tick; mid-tick, the window
         # predicate inside every join plays the role of the paper's
@@ -300,7 +339,16 @@ def build_tick_body(
         for si, s in enumerate(plan.subqueries):
             sub = list(levels[si])
             sub_recons: list[_View] = []
-            for li, lv in enumerate(s.levels):
+            start = prefix_depth if si == 0 else 0
+            if start:
+                # the shared prefix table's post-append view seeds the
+                # chain where the local level start-1 view would have
+                sub_recons.append(_View(prefix_view.bind, prefix_view.ets,
+                                        prefix_view.valid,
+                                        prefix_view.fresh, shared=True))
+            for li in range(start, len(s.levels)):
+                lv = s.levels[li]
+                ti = li - start          # index into the (suffix) tables
                 em = ematch[:, lv.qedge]                    # [S, B]
                 if li == 0:
                     t, nd = _append_level(
@@ -313,31 +361,31 @@ def build_tick_body(
                     a_idx, b_idx, pv, nd1 = J.join_pairs(
                         prev.bind, prev.ets, prev.valid,
                         bbind, bets, em,
-                        level_rel[(si, li)], _trel_chain(prev.ets.shape[2]),
+                        level_rel[(si, li)], _trel_chain(prev.ets.shape[-1]),
                         lv.max_new, window, backend)
                     n_overflow += nd1
                     b_idx = b_idx.clamp(0, n_b - 1)
                     t, nd2 = _append_level(
-                        sub[li], a_idx, batch.src[b_idx], batch.dst[b_idx],
+                        sub[ti], a_idx, batch.src[b_idx], batch.dst[b_idx],
                         batch.ts[b_idx], pv)
-                    sub[li] = t
+                    sub[ti] = t
                     n_overflow += nd2
                 # reconstruct this level's denormalized view (post-append)
-                t = sub[li]
+                t = sub[ti]
                 if li == 0:
                     bind = torch.stack([t.src, t.dst], dim=2)
                     ets = t.ts[:, :, None]
                 else:
                     p = t.parent.clamp(min=0).long()
                     prevv = sub_recons[-1]
-                    cols = [_rows(prevv.bind, p)]
+                    cols = [_rows(prevv.bind, p, prevv.shared)]
                     if lv.src_slot < 0:
                         cols.append(t.src[:, :, None])
                     if lv.dst_slot < 0:
                         cols.append(t.dst[:, :, None])
                     bind = torch.cat(cols, dim=2)
-                    ets = torch.cat([_rows(prevv.ets, p), t.ts[:, :, None]],
-                                    dim=2)
+                    ets = torch.cat([_rows(prevv.ets, p, prevv.shared),
+                                     t.ts[:, :, None]], dim=2)
                 sub_recons.append(_View(bind, ets, t.valid, t.fresh))
             recons.append(sub_recons)
             new_levels.append(tuple(sub))
@@ -361,10 +409,11 @@ def build_tick_body(
                 js.rel, js.trel, d, window, backend)
             nb = _rows(b_view.bind, b1)
             out_bind1 = torch.cat(
-                [_rows(da.bind, a1)] + ([nb[:, :, new_b]] if new_b else []),
+                [_rows(da.bind, a1, da.shared)]
+                + ([nb[:, :, new_b]] if new_b else []),
                 dim=2)
             out_ets1 = torch.cat(
-                [_rows(da.ets, a1), _rows(b_view.ets, b1)], dim=2)
+                [_rows(da.ets, a1, da.shared), _rows(b_view.ets, b1)], dim=2)
             tbl, nd2 = _append_l0(tbl, out_bind1, out_ets1, pv1)
 
             # J2: A_old ⋈ ΔB
@@ -376,11 +425,12 @@ def build_tick_body(
             n_overflow += nd4
             nb2 = _rows(db.bind, b2)
             out_bind2 = torch.cat(
-                [_rows(a_view.bind, a2)]
+                [_rows(a_view.bind, a2, a_view.shared)]
                 + ([nb2[:, :, new_b]] if new_b else []),
                 dim=2)
             out_ets2 = torch.cat(
-                [_rows(a_view.ets, a2), _rows(db.ets, b2)], dim=2)
+                [_rows(a_view.ets, a2, a_view.shared), _rows(db.ets, b2)],
+                dim=2)
             tbl, nd5 = _append_l0(tbl, out_bind2, out_ets2, pv2)
 
             n_overflow += nd1 + nd2 + nd3 + nd5
@@ -392,10 +442,16 @@ def build_tick_body(
         #       is reported even if it expires within the same tick) --- #
         final = a_view
         new_mask = final.fresh & final.valid
-        n_new = new_mask.sum(dim=1, dtype=I32)
+        n_new = new_mask.sum(dim=-1, dtype=I32).expand(n_slots)
         if extract_matches:
             out, _, nd = _compact(final, new_mask, max_out)
             mb, me, mv = out.bind, out.ets, out.valid
+            if out.shared:
+                # a fully shared subquery 0 without L0 joins: every slot
+                # reports the shared table's new rows (the slot tick masks
+                # the unarmed ones)
+                mb, me, mv = (x.expand(n_slots, *x.shape).contiguous()
+                              for x in (mb, me, mv))
             n_overflow += nd
         else:
             mb = torch.zeros((n_slots, max_out, nv_final), dtype=I32,
@@ -406,7 +462,9 @@ def build_tick_body(
                              device=dev)
 
         # -- 5. end-of-tick expiry ------------------------------------- #
-        levels, l0 = _expire(levels, l0, t_now - window)
+        levels, l0 = _expire(
+            levels, l0, t_now - window,
+            prefix_view.valid_after if prefix_depth else None)
 
         stats = EngineStats(
             n_matches_total=state.stats.n_matches_total + n_new,
@@ -434,7 +492,9 @@ def build_tick(
     device=None,
 ):
     """Compile ``plan`` into ``tick(state, batch, watermark=None) ->
-    (state, res)`` for one query (the body at S = 1).
+    (state, res)`` for one query (the body at S = 1); with
+    ``prefix_depth > 0``, ``tick(state, batch, prefix_view,
+    watermark=None)``.
 
     ``device`` None means the card.  ``backend`` None picks the device's
     default (``JoinBackend.CUDA`` on a CUDA device, ``REF`` on the CPU);
@@ -460,12 +520,21 @@ def build_tick(
                      lab(plan.edge_edge_label))
     window = torch.tensor([plan.window], dtype=I32, device=device)
 
-    def tick(state: EngineState, batch: EdgeBatch, watermark=None):
+    def run(state, batch, prefix_view, watermark):
         stacked = map_state(lambda x: x.unsqueeze(0), state)
         em = edge_match_mask(batch, esl, edl, eel).unsqueeze(0)
-        new, res = body(stacked, batch, em, window, watermark=watermark)
+        new, res = body(stacked, batch, em, window, watermark=watermark,
+                        prefix_view=prefix_view)
         return (map_state(lambda x: x.squeeze(0), new),
                 map_state(lambda x: x.squeeze(0), res))
+
+    if prefix_depth:
+        def tick(state: EngineState, batch: EdgeBatch, prefix_view,
+                 watermark=None):
+            return run(state, batch, prefix_view, watermark)
+    else:
+        def tick(state: EngineState, batch: EdgeBatch, watermark=None):
+            return run(state, batch, None, watermark)
 
     return tick
 

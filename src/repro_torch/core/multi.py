@@ -156,13 +156,16 @@ def stack_states(states: Sequence[EngineState]) -> EngineState:
 
 
 def init_slot_state(template_plan: ExecutionPlan, n_slots: int,
-                    device=None) -> SlotState:
+                    device=None, prefix_depth: int = 0) -> SlotState:
     """Empty slot group of ``n_slots`` unarmed slots on ``device``
-    (``None``: the card)."""
+    (``None``: the card); with ``prefix_depth``, subquery 0 keeps only
+    its suffix levels."""
     device = resolve_device(device)
     nq = template_plan.query.n_edges
     return SlotState(
-        engines=stack_states([init_state(template_plan, device)] * n_slots),
+        engines=stack_states(
+            [init_state(template_plan, device,
+                        prefix_depth=prefix_depth)] * n_slots),
         params=SlotParams(
             esl=torch.zeros((n_slots, nq), dtype=I32, device=device),
             edl=torch.zeros((n_slots, nq), dtype=I32, device=device),
@@ -238,18 +241,48 @@ def build_slot_tick(
     watermark clock keeps the freeze too, since an all-invalid batch's
     max ts is INT32_MIN).  ``watermark`` None keeps the max-ts clock, an
     int32 scalar switches every slot to event-time admission/expiry.
+
+    With ``prefix_depth > 0`` (cross-tenant prefix sharing) the tick is
+    ``tick(sstate, batch, prefix_view, watermark=None)``: every slot
+    consumes the SAME shared prefix view — the reference broadcasts it
+    through ``vmap``; here it goes to the body without a slot axis and
+    the joins read it as a shared operand — and the slots run only the
+    suffix joins.  Results and stats of unarmed slots are masked: the
+    shared view is input even to slots that hold no tenant.
     """
     body = build_tick_body(template_plan, backend=backend,
                            extract_matches=extract_matches, max_out=max_out,
                            prefix_depth=prefix_depth)
 
-    def tick(sstate: SlotState, batch: EdgeBatch, watermark=None):
+    def run(sstate, batch, prefix_view, watermark):
         p = sstate.params
         valid = batch.valid[None, :] & p.active[:, None]
         em = edge_match_mask(batch, p.esl, p.edl, p.eel, valid=valid)
         engines, results = body(sstate.engines, batch, em, p.window,
-                                watermark=watermark, valid=valid)
-        return sstate._replace(engines=engines), results
+                                watermark=watermark, valid=valid,
+                                prefix_view=prefix_view)
+        return engines, results
+
+    if prefix_depth == 0:
+        def tick(sstate: SlotState, batch: EdgeBatch, watermark=None):
+            engines, results = run(sstate, batch, None, watermark)
+            return sstate._replace(engines=engines), results
+
+        return tick
+
+    def tick(sstate: SlotState, batch: EdgeBatch, prefix_view,
+             watermark=None):
+        engines, r = run(sstate, batch, prefix_view, watermark)
+        act = sstate.params.active
+        engines = engines._replace(stats=map_state(
+            lambda new, old: torch.where(act, new, old),
+            engines.stats, sstate.engines.stats))
+        zero = torch.zeros((), dtype=I32, device=act.device)
+        r = r._replace(
+            n_new_matches=torch.where(act, r.n_new_matches, zero),
+            n_overflow=torch.where(act, r.n_overflow, zero),
+            match_valid=r.match_valid & act[:, None])
+        return sstate._replace(engines=engines), r
 
     return tick
 
@@ -300,6 +333,16 @@ class SlotTickCache:
                 template_plan, backend=backend,
                 extract_matches=extract_matches, max_out=max_out,
                 prefix_depth=prefix_depth))
+
+    def get_node(self, spec, backend: str = J.JoinBackend.REF):
+        """Built prefix-node tick for one structural ``NodeSpec``
+        (``repro_torch.core.share``).  Labels and window are runtime
+        inputs, so one entry serves every node of that structure, and a
+        restore re-arms a forest with cache hits."""
+        from repro_torch.core.share import build_node_tick
+
+        key = ("prefix_node", spec, backend)
+        return self._get(key, lambda: build_node_tick(spec, backend=backend))
 
 
 GLOBAL_SLOT_TICK_CACHE = SlotTickCache()

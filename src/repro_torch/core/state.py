@@ -101,8 +101,14 @@ def _empty_l0(capacity: int, nv: int, ne: int, device) -> L0Table:
 
 
 def init_state(plan: ExecutionPlan, device=None,
-               watermark: int | None = None) -> EngineState:
+               watermark: int | None = None,
+               prefix_depth: int = 0) -> EngineState:
     """Empty tables for ``plan`` on ``device`` (``None``: the card).
+
+    With ``prefix_depth > 0`` (cross-tenant prefix sharing,
+    ``repro_torch.core.share``), subquery 0's first that-many levels live
+    in a shared prefix table owned by the forest, so the per-tenant state
+    holds only the suffix levels (the reference's layout, leaf for leaf).
 
     ``watermark`` seeds the engine clock ``t_now``: a tenant registered
     mid-stream under event-time serving starts at the already-released
@@ -110,8 +116,9 @@ def init_state(plan: ExecutionPlan, device=None,
     """
     device = resolve_device(device)
     levels = tuple(
-        tuple(_empty_level(lv.capacity, device) for lv in s.levels)
-        for s in plan.subqueries
+        tuple(_empty_level(lv.capacity, device)
+              for lv in s.levels[(prefix_depth if si == 0 else 0):])
+        for si, s in enumerate(plan.subqueries)
     )
     l0 = tuple(
         _empty_l0(js.capacity, len(js.vertex_layout), len(js.edge_layout),

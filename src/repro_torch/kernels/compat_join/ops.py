@@ -23,11 +23,14 @@ tiles, 16-byte stores).  It equals the plain version (``ref.compat_mask``)
 element for element.
 
 ``compat_join_pairs.launches`` and ``compat_mask.launches`` count kernel
-launches (one per call that reaches the card); ``chip_smoke.py`` zeroes
-and reads them around each path.
+launches (one per call that reaches the card), and
+``compat_join_pairs.launches_by_slots`` the same launches by slot count
+S; ``chip_smoke.py`` zeroes and reads them around each path.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 from repro_torch.core.join import as_window, n_slots_of
 from repro_torch.kernels.compat_join import kernel as K
@@ -48,10 +51,12 @@ def compat_join_pairs(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
         bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,
         int(max_new), w, n)
     compat_join_pairs.launches += 1
+    compat_join_pairs.launches_by_slots[n] += 1
     return out
 
 
 compat_join_pairs.launches = 0
+compat_join_pairs.launches_by_slots = Counter()
 
 
 def compat_mask(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel, trel,

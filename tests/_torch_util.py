@@ -49,3 +49,48 @@ def port_edges(stream):
     from repro_torch.core.oracle import DataEdge
     return [DataEdge(e.src, e.dst, e.ts, e.src_label, e.dst_label,
                      e.edge_label) for e in stream]
+
+
+def forest_leaves(svc) -> list:
+    """Every prefix node's (pid, depth, epoch, refcount) and state leaves
+    of a (JAX or port) service, in pid order, as numpy arrays."""
+    if svc.forest is None:
+        return []
+    return [((n.pid, n.depth, n.epoch, n.refcount), leaves(n.state))
+            for n in svc.forest.nodes()]
+
+
+def assert_same_forest(ref_svc, port_svc, where=""):
+    """Forest stats equal and every node table bit-identical."""
+    assert tuple(port_svc.forest_stats()) == tuple(ref_svc.forest_stats()), \
+        where
+    a, b = forest_leaves(ref_svc), forest_leaves(port_svc)
+    assert [k for k, _ in a] == [k for k, _ in b], where
+    for (key, xs), (_, ys) in zip(a, b):
+        assert len(xs) == len(ys)
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            assert (x.dtype == np.bool_) == (y.dtype == np.bool_)
+            assert np.array_equal(x.astype(np.int64), y.astype(np.int64)), \
+                f"{where}: node {key} leaf {i} differs"
+
+
+def served_reports(svc, stream, record=None, **serve):
+    """Serve ``stream``; returns (Counter of (qid, match key) reports,
+    per-tick ServeInfos, per-tick ``record(svc)`` snapshots)."""
+    from collections import Counter
+
+    from test_service_restore import event_key
+    events, infos, snaps = [], [], []
+
+    def on_match(qid, bindings, ets):
+        plan = svc.registry.get(qid).plan
+        for b, t in zip(bindings, ets):
+            events.append((qid, event_key(plan, b, t)))
+
+    def on_tick(info):
+        infos.append(info)
+        if record is not None:
+            snaps.append(record(svc))
+
+    svc.serve_stream(stream, on_match=on_match, on_tick=on_tick, **serve)
+    return Counter(events), infos, snaps

@@ -56,7 +56,13 @@ MODULES = [
     "repro_torch.models.recsys.wide_deep", "repro_torch.models.gnn.models",
     "repro_torch.models.gnn.message", "repro_torch.data.recsys",
     "repro_torch.data.graphs", "repro_torch.configs.wide_deep",
-    "repro_torch.configs.gin_tu",
+    "repro_torch.configs.gin_tu", "repro_torch.core.share",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.obs.export", "repro_torch.obs.summarize",
+    "repro_torch.api", "repro_torch.api.events", "repro_torch.api.pattern",
+    "repro_torch.api.planner", "repro_torch.api.session",
+    "repro_torch.launch.stream_serve",
 ]
 
 
@@ -100,11 +106,31 @@ def _plan():
 @pytest.mark.parametrize("entry", [
     "init_state", "init_slot_state", "build_tick", "make_batch",
     "service", "service_cuda_device", "wide_deep", "gin",
-    "batch_to_device", "graph_to_device", "params_from_numpy"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
+    "batch_to_device", "graph_to_device", "params_from_numpy",
+    "shared_service", "init_node_state", "stream_session", "stream_server",
+    "service_restore"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    from repro_torch.api import StreamSession
+    from repro_torch.core.share import init_node_state, node_spec
+    from repro_torch.launch.stream_serve import StreamServer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan = _plan()
+    ckpt = tmp_path / "ckpt"
+    if entry == "service_restore":
+        svc = ContinuousSearchService(device="cpu", ckpt_dir=str(ckpt))
+        svc.register(plan.query, plan.window)
+        svc.checkpoint()
+        svc.ckpt.wait()
     calls = {
+        "shared_service": lambda **kw: ContinuousSearchService(
+            enable_sharing=True, **kw),
+        "init_node_state": lambda **kw: init_node_state(node_spec(plan, 1),
+                                                        **kw),
+        "stream_session": lambda **kw: StreamSession(**kw),
+        "stream_server": lambda **kw: StreamServer(plan, **kw),
+        "service_restore": lambda **kw: ContinuousSearchService.restore(
+            str(ckpt), **kw),
         "init_state": lambda **kw: state.init_state(plan, **kw),
         "init_slot_state": lambda **kw: multi.init_slot_state(plan, 2, **kw),
         "build_tick": lambda **kw: engine.build_tick(plan, **kw),
@@ -173,11 +199,22 @@ def test_cuda_backend_with_cpu_tensors_raises():
         body(st.engines, b, em, st.params.window)
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        engine.build_tick_body(_plan(), prefix_depth=1)
+def test_later_slices_raise_not_implemented(tmp_path):
+    """The mesh slice: capacity sharding, replica-sharded sessions and
+    sharded checkpoints raise; shared prefixes are served now, and only
+    an out-of-range depth is refused."""
+    from repro_torch.api import StreamSession
+    from repro_torch.checkpoint import save_checkpoint
+
     with pytest.raises(NotImplementedError):
         engine.build_tick_body(_plan(), axis_name="data", n_shards=2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        StreamSession(mesh=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        save_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)}, n_shards=2)
+    engine.build_tick_body(_plan(), prefix_depth=2)
+    with pytest.raises(ValueError, match="out of range"):
+        engine.build_tick_body(_plan(), prefix_depth=3)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -528,3 +528,109 @@ def test_segment_sum_kernel_without_edges(cuda, case, dtype):
     msg = torch.ones((e, d), device=cuda, dtype=dtype)
     got = _sr_check(dst, msg, n)
     assert not got.any()
+
+
+# --------------------------------------------------------------------- #
+# the stateful serving stack on the card
+# --------------------------------------------------------------------- #
+def _share_queries():
+    """Two 2-chain prefixes (label families), each aliased by three
+    tenants that differ in a third edge joined in L0, plus a 3-chain."""
+    out = []
+    for fam in range(2):
+        for k in range(3):
+            out.append(QueryGraph(
+                4, (fam, 1 + fam, 2, k % 3), ((0, 1), (1, 2), (1, 3)),
+                edge_labels=(0, 1, k % 2), prec=frozenset({(0, 1)})))
+    out.append(QueryGraph(4, (0, 1, 2, 0), ((0, 1), (1, 2), (2, 3)),
+                          prec=frozenset({(0, 1), (1, 2)})))
+    return out
+
+
+def _serve_reports(svc, stream):
+    from collections import Counter
+
+    got = Counter()
+
+    def on_match(qid, bind, ets):
+        got.update((qid,) + tuple(map(int, b)) + tuple(map(int, e))
+                   for b, e in zip(bind, ets))
+    infos = []
+    svc.serve_stream(stream, on_match=on_match, on_tick=infos.append,
+                     batch_size=256, min_batch=256, max_batch=256)
+    return got, infos
+
+
+def test_sharing_on_card_equals_sharing_off_and_ref(cuda):
+    """Prefix sharing on the CUDA backend: the forest's child ticks
+    launch the pair kernel at S = 1, the suffix groups read the prefix
+    view as a shared operand; per-tenant reports equal the unshared CUDA
+    service's and the shared REF service's, every node table and state
+    leaf included."""
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.runtime.service import ContinuousSearchService
+
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=4096, n_vertices=3000, n_vertex_labels=3, n_edge_labels=2,
+        seed=7, ts_step_max=2))
+    cap = dict(level_capacity=4096, l0_capacity=4096, max_new=1024)
+
+    def svc(share, backend):
+        s = ContinuousSearchService(
+            slots_per_group=4, tick_cache=SlotTickCache(), backend=backend,
+            enable_sharing=share, device="cuda", **cap)
+        for q in _share_queries():
+            s.register(q, 120)
+        return s
+
+    shared, plain, ref = svc(True, "cuda"), svc(False, "cuda"), \
+        svc(True, "ref")
+    assert shared.forest_stats().n_shared_nodes == 4
+    before = ops.compat_join_pairs.launches
+    got_s, infos = _serve_reports(shared, stream)
+    launches = ops.compat_join_pairs.launches - before
+    got_p, _ = _serve_reports(plain, stream)
+    got_r, _ = _serve_reports(ref, stream)
+    assert got_s == got_p == got_r and sum(got_s.values()) > 0
+    assert launches > 0 and all(i.n_overflow == 0 for i in infos)
+    for n_s, n_r in zip(shared.forest.nodes(), ref.forest.nodes()):
+        for x, y in zip(_leaves(n_s.state), _leaves(n_r.state)):
+            assert torch.equal(x, y)
+    for qid in shared.registry.qids():
+        assert shared.matches(qid) == plain.matches(qid)
+        for x, y in zip(_leaves(shared.state(qid)), _leaves(ref.state(qid))):
+            assert torch.equal(x, y)
+
+
+def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A checkpoint of CUDA state (sharing on) restores onto the card
+    with zero builds in a warm cache and continues exactly as the
+    uninterrupted service; restored onto the CPU (REF) it agrees too."""
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.runtime.service import ContinuousSearchService
+
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=4096, n_vertices=3000, n_vertex_labels=3, n_edge_labels=2,
+        seed=8, ts_step_max=2))
+    cap = dict(level_capacity=4096, l0_capacity=4096, max_new=1024)
+    tc = SlotTickCache()
+    svc = ContinuousSearchService(
+        slots_per_group=4, tick_cache=tc, enable_sharing=True,
+        ckpt_dir=str(tmp_path), device="cuda", **cap)
+    for q in _share_queries():
+        svc.register(q, 120)
+    kw = dict(batch_size=256, min_batch=256, max_batch=256)
+    svc.serve_stream(stream[:2048], ckpt_every=4, **kw)
+    builds = tc.n_builds
+    back = ContinuousSearchService.restore(str(tmp_path), tick_cache=tc,
+                                           device="cuda")
+    assert back.backend == "cuda" and tc.n_builds == builds
+    cpu = ContinuousSearchService.restore(str(tmp_path), backend="ref",
+                                          device="cpu")
+    svc.serve_stream(stream[2048:], **kw)
+    back.serve_stream(stream[2048:], **kw)
+    cpu.serve_stream(stream[2048:], **kw)
+    for qid in svc.registry.qids():
+        assert back.matches(qid) == svc.matches(qid) == cpu.matches(qid)
+        for x, y in zip(_leaves(back.state(qid)), _leaves(svc.state(qid))):
+            assert x.is_cuda and torch.equal(x, y)

@@ -93,3 +93,30 @@ def test_any_profile_takes_an_empty_window_again(monkeypatch):
     _fake_profiler(monkeypatch, [{}, {}, {"index_add": 0.5}, {"x": 1.0}])
     dev_ms, by_key, windows = cs._any_profile(None, None, 3)
     assert (dev_ms, by_key, windows) == (0.5, {"index_add": 0.5}, 3)
+
+
+def test_session_patterns_share_one_prefix_chain_per_family():
+    """The ``session`` phase's tenants, planned on the CPU: each family
+    of 8 aliases one depth-1 and one depth-2 forest node, the third edge
+    is a second TC-subquery joined in L0, and each family is one slot
+    group of the prefix-sharing service."""
+    from repro_torch.api import StreamSession
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.core.share import prefix_chain
+
+    stream = cs.make_stream(0, 4 * 4096)
+    patterns = cs.session_patterns(stream)
+    assert len(patterns) == 16
+    sess = StreamSession(slots_per_group=8, level_capacity=64,
+                         l0_capacity=64, max_new=16, share_prefixes=True,
+                         tick_cache=SlotTickCache(), device="cpu")
+    subs = [sess.register(p) for p in patterns]
+    svc = sess.service
+    for sub in subs:
+        plan = svc.registry.get(sub.qid).plan
+        assert len(plan.subqueries) == 2 and len(plan.l0_joins) == 1
+        assert prefix_chain(plan).depth == 2
+        assert sub.shared_prefix.n_tenants == 8
+    fs = svc.forest_stats()
+    assert (fs.n_nodes, fs.n_shared_nodes, fs.n_tenants) == (4, 4, 16)
+    assert len(svc._iter_groups()) == 2 and svc.n_compiles == 1

@@ -56,6 +56,29 @@ exit, nothing is caught and skipped):
                 prefix-node ticks per tick, the checkpoint's bytes,
                 publish ms and write ms, restore seconds, and pair
                 launches per tick by slot count;
+  frontier      the fault-tolerant ingest path through the public api:
+                the session phase's tenants, capacities and stream on
+                the card through ``sources(...)`` + ``serve_frontier``:
+                four capture points (``disordered_sources``: 5% of
+                deliveries up to 64 positions late, 1% redelivered), each
+                behind a seeded ``ChaosSource`` (disconnects with rewind,
+                duplicates, reordering, stalls, torn batches), retry with
+                no sleeps, 1,024 deliveries a source a round, 4,096-edge
+                ticks, event-time admission and expiry from the
+                watermark, ``allowed_lateness`` the largest event-time
+                regression of any source's delivery sequence; checks:
+                overflow 0, no late, forced or forced-gap drop, every
+                delivery emitted once or counted as a duplicate,
+                per-tenant matches equal to an uninterrupted ``serve()``
+                of the canonical stream, a crash after tick 40 restored
+                from the newest checkpoint with the frontier resumed from
+                ``restored_ingest`` exactly once, the pair kernel
+                launched at S = 1 and S = 8; prints edges/s and tick
+                p50/p99 beside ``serve()`` (serve, frontier, serve,
+                frontier), released chunk sizes, the ServeInfo frontier
+                fields summed, pump and release ms per tick (the
+                tracer's ``ingest.pump``/``ingest.release`` spans in an
+                instrumented turn) and the restore seconds;
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
@@ -74,7 +97,7 @@ exit, nothing is caught and skipped):
                 against the plain-version forward.
 
 Each path's kernel launch counter is zeroed just before the path is
-driven and read just after (serve, session, each mask case's
+driven and read just after (serve, session, frontier, each mask case's
 entry-point call, recsys_serve, gin_infer).  Then a {"kernels": [...]}
 line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
@@ -1242,6 +1265,353 @@ def phase_session(torch, args, stream):
 
 
 # --------------------------------------------------------------------- #
+# frontier: the fault-tolerant ingest path through the public api
+# --------------------------------------------------------------------- #
+FRONTIER_PUMP = BATCH // 4        # deliveries a source a round: 4 fill a tick
+FRONTIER_REORDER_CAP = 1 << 20    # never forces: the watermark releases
+FRONTIER_DISORDER = dict(n_sources=4, disorder_frac=0.05, max_delay=64,
+                         duplicate_rate=0.01)
+# tests/test_ingest_chaos.py:_chaos_sources's fault mix
+FRONTIER_CHAOS = dict(p_disconnect=0.08, rewind=4, p_duplicate=0.05,
+                      reorder_span=3, p_reorder=0.2, p_stall=0.05,
+                      stall_len=2, p_torn=0.05)
+
+
+def _frontier_sources(stream, seed: int):
+    """Four capture points (``disordered_sources``: 5% of deliveries up
+    to 64 positions late, 1% redelivered), each behind a seeded
+    ``ChaosSource`` and a counter of its raw deliveries."""
+    from repro_torch.stream.chaos import ChaosConfig, ChaosSource
+    from repro_torch.stream.generator import DisorderConfig, \
+        disordered_sources
+    from repro_torch.stream.ingest import ScriptedSource, Source
+
+    class Counted(Source):
+        def __init__(self, inner):
+            self.inner, self.name, self.n_delivered = inner, inner.name, 0
+
+        def connect(self, resume_from=0):
+            self.inner.connect(resume_from)
+
+        def poll(self, max_events=64):
+            out = self.inner.poll(max_events)
+            self.n_delivered += len(out)
+            return out
+
+        def close(self):
+            self.inner.close()
+
+        @property
+        def exhausted(self):
+            return self.inner.exhausted
+
+    scripts = disordered_sources(stream, DisorderConfig(
+        seed=seed, **FRONTIER_DISORDER))
+    return scripts, [
+        Counted(ChaosSource(ScriptedSource(f"cap{i}", sc), ChaosConfig(
+            seed=seed + 2 + i, **FRONTIER_CHAOS)))
+        for i, sc in enumerate(scripts)]
+
+
+def _regression(ts_seq) -> int:
+    """Largest event-time regression of a delivery sequence: how far an
+    event's ts lies below the largest ts delivered before it."""
+    worst, hi = 0, None
+    for t in ts_seq:
+        if hi is not None:
+            worst = max(worst, hi - t)
+        hi = t if hi is None else max(hi, t)
+    return worst
+
+
+def _delivered_lateness(stream, seed: int, manifest=None) -> int:
+    """The largest event-time regression within any source's delivery
+    script as its chaos transport delivers it: each source replayed on
+    the host through a ``SourceAdapter`` with the frontier's seeds, poll
+    size and retry policy (and, after a restore, the manifest's
+    cursors), duplicates suppressed as the frontier suppresses them.
+    With this lateness no delivery is late."""
+    from repro_torch.runtime.fault import RetryPolicy
+    from repro_torch.stream.ingest import SeqTracker, SourceAdapter
+
+    cursors = {} if manifest is None else {
+        s["name"]: SeqTracker.from_manifest(s) for s in manifest["sources"]}
+    worst = 0
+    for src in _frontier_sources(stream, seed)[1]:
+        a = SourceAdapter(src, retry=RetryPolicy(base_delay_s=0.0),
+                          sleep=lambda d: None, tracker=cursors.get(src.name))
+        seq = []
+        while not a.exhausted:
+            seq += [ev.ts for ev in a.pull(FRONTIER_PUMP)]
+        worst = max(worst, _regression(seq))
+    return worst
+
+
+def _serve_frontier(sess, patterns, stream, seed, lateness, reports,
+                    resume=None, on_tick=None, **serve):
+    """Register ``patterns`` (first call), build the frontier over fresh
+    chaos sources and serve it; returns (wall seconds, frontier, the
+    counted sources)."""
+    import torch
+
+    from repro_torch.runtime.fault import RetryPolicy
+
+    if not sess.subscriptions():
+        for p in patterns:
+            sub = sess.register(p)
+            sub.on_match = reports.on_match_for(sub.qid)
+    _, srcs = _frontier_sources(stream, seed)
+    fr = sess.sources({s.name: s for s in srcs}, resume=resume,
+                      allowed_lateness=lateness,
+                      reorder_capacity=FRONTIER_REORDER_CAP,
+                      retry=RetryPolicy(base_delay_s=0.0),
+                      sleep=lambda d: None)
+    _sync(torch)
+    t0 = time.perf_counter()
+    sess.serve_frontier(fr, on_tick=on_tick or reports.on_tick,
+                        batch_size=BATCH, min_batch=BATCH, max_batch=BATCH,
+                        pump_size=FRONTIER_PUMP, **serve)
+    _sync(torch)
+    return time.perf_counter() - t0, fr, srcs
+
+
+def _frontier_checks(what, fr, srcs, infos, n_edges, emitted_before=0):
+    """The frontier's accounting: every raw delivery emitted once,
+    counted as a duplicate or counted as dropped; nothing late, nothing
+    forced, nothing left in the buffer.  A resumed frontier's counters
+    carry ``emitted_before`` emissions of the run it resumes."""
+    s = fr.stats()
+    delivered = sum(x.n_delivered for x in srcs)
+    accounted = s.n_emitted - emitted_before + s.n_duplicates \
+        + s.n_late_dropped + s.n_dropped_forced_gap + s.buffered
+    if delivered != accounted:
+        counts = {k: v for k, v in s.items() if k != "by_source"}
+        fail(f"frontier {what}: {delivered} deliveries, {accounted} "
+             f"accounted for ({counts})")
+    if s.n_late_dropped or s.n_dropped_forced_gap or s.n_forced \
+            or s.buffered:
+        fail(f"frontier {what}: late {s.n_late_dropped}, forced gap "
+             f"{s.n_dropped_forced_gap}, forced {s.n_forced}, buffered "
+             f"{s.buffered}")
+    if n_edges is not None and s.n_emitted != n_edges:
+        fail(f"frontier {what}: emitted {s.n_emitted} of {n_edges}")
+    if any(i.n_overflow for i in infos):
+        fail(f"frontier {what}: overflow")
+    return s, delivered
+
+
+def _serve_info_sums(infos) -> dict:
+    return {"n_late_dropped": sum(i.n_late_dropped for i in infos),
+            "n_duplicates": sum(i.n_duplicates for i in infos),
+            "n_reconnects": sum(i.n_reconnects for i in infos),
+            "n_dropped_forced_gap": sum(i.n_dropped_forced_gap
+                                        for i in infos),
+            "watermark_lag_max": max(i.watermark_lag for i in infos),
+            "watermark_lag_mean": statistics.fmean(
+                i.watermark_lag for i in infos),
+            "window_staleness_max": max(i.window_staleness for i in infos),
+            "watermark_last": infos[-1].watermark}
+
+
+def phase_frontier(torch, args, stream):
+    """The ingest frontier through the public api on the card:
+    ``StreamSession(share_prefixes=True)`` on the CUDA backend fed by
+    ``sources(...)`` + ``serve_frontier`` — four disordered capture
+    points behind chaos transports (disconnects with rewind, duplicates,
+    reordering, stalls, torn batches), retry without sleeps, event-time
+    admission and expiry from the watermark — held to an uninterrupted
+    ``serve()`` of the canonical stream; a crash restored from the
+    newest checkpoint with the frontier resumed from
+    ``restored_ingest``."""
+    import tempfile
+
+    from repro_torch.api import StreamSession
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.kernels.compat_join import ops
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.summarize import summarize_trace
+    from repro_torch.runtime.fault import SimulatedFailure
+
+    patterns = session_patterns(stream)
+    n_ticks = len(stream) // BATCH
+    crash = min(SESSION_CRASH_TICK, n_ticks - 1)
+    seed = args.seed
+    tc = SlotTickCache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_frontier_")
+    t0 = time.perf_counter()
+    scripts, _ = _frontier_sources(stream, seed)
+    script_lateness = max(_regression([e.ts for _, e in sc])
+                          for sc in scripts)
+    lateness = _delivered_lateness(stream, seed)
+    setup_s = time.perf_counter() - t0
+
+    timing, want, launches, by_slots = [], None, None, None
+    frontier_runs = []
+    # shared serve, frontier, shared serve, frontier: fresh sessions on
+    # one warm tick cache (host noise between the turns)
+    for turn, kind in enumerate(("serve", "frontier", "serve",
+                                 "frontier")):
+        sess = _session(None, True, tc)
+        rep = _Reports(sess)
+        if kind == "serve":
+            wall = _serve_session(sess, patterns, stream, rep)
+            svc = sess.service
+            if svc.overflow_pressure() or any(i.n_overflow
+                                               for i in rep.infos):
+                fail("frontier: the serve() turn overflowed")
+            if want is None:
+                want = rep.multiset()
+                if not want:
+                    fail("frontier: the serve() turn found no matches")
+            elif rep.multiset() != want:
+                fail("frontier: two serve() turns differ")
+        else:
+            if launches is None:
+                ops.compat_join_pairs.launches = 0     # the frontier path
+                ops.compat_join_pairs.launches_by_slots.clear()
+            wall, fr, srcs = _serve_frontier(sess, patterns, stream, seed,
+                                             lateness, rep)
+            if launches is None:
+                launches = ops.compat_join_pairs.launches
+                by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+            svc = sess.service
+            if svc.backend != ("cuda" if DEVICE == "cuda" else "ref"):
+                fail(f"frontier: backend {svc.backend}, not cuda")
+            if svc.overflow_pressure():
+                fail(f"frontier: overflow {svc.overflow_pressure()}")
+            st, delivered = _frontier_checks(f"turn {turn}", fr, srcs,
+                                             rep.infos, len(stream))
+            if rep.multiset() != want:
+                got = rep.multiset()
+                fail(f"frontier: per-tenant matches differ from serve() "
+                     f"({sum(got.values())} vs {sum(want.values())})")
+            status = sess.status()
+            if status.n_late_dropped or status.health != "active":
+                fail(f"frontier: session status {status}")
+            chunks = sorted(i.chunk for i in rep.infos)
+            frontier_runs.append({
+                "ticks": len(rep.infos), "delivered": delivered,
+                "stats": {k: v for k, v in st.items() if k != "by_source"},
+                "serve_info_sums": _serve_info_sums(rep.infos),
+                "chunk": {"min": chunks[0], "p50": _pctl(chunks, 0.5),
+                          "max": chunks[-1],
+                          "n_full": sum(c == BATCH for c in chunks),
+                          "n_below_half": sum(c < BATCH // 2
+                                              for c in chunks)},
+                "forest_stats": svc.forest_stats()._asdict()})
+        timing.append({"turn": kind, **_timing(True, len(stream), wall,
+                                               rep.infos)})
+        del sess, svc
+        _free(torch)
+
+    # -- an instrumented turn: the frontier's own host cost, per tick ------
+    buf_path = os.path.join(tmp, "trace.jsonl")
+    with Tracer(buf_path) as tracer:
+        sess = StreamSession(
+            slots_per_group=SLOTS, level_capacity=LEVEL_CAP,
+            l0_capacity=LEVEL_CAP, max_new=MAX_NEW, tick_cache=tc,
+            share_prefixes=True, tracer=tracer, device=DEVICE)
+        rep = _Reports(sess)
+        wall_i, fr, srcs = _serve_frontier(sess, patterns, stream, seed,
+                                           lateness, rep)
+        _frontier_checks("instrumented", fr, srcs, rep.infos, len(stream))
+        if rep.multiset() != want:
+            fail("frontier: the instrumented turn's matches differ")
+    spans = summarize_trace(buf_path)["spans"]
+    n_tick = len(rep.infos)
+    host = {name: {"ms_per_tick": spans[name]["total_ms"] / n_tick,
+                   "p50_ms": spans[name]["p50_ms"],
+                   "p99_ms": spans[name]["p99_ms"],
+                   "count": spans[name]["count"]}
+            for name in ("ingest.pump", "ingest.release", "tick.forest",
+                         "tick.slot_dispatch", "tick.barrier",
+                         "tick.deliver") if name in spans}
+    metrics = {k: v for k, v in sess.metrics().items()
+               if k.startswith("ingest.")}
+    del sess
+    _free(torch)
+
+    # -- crash after tick 40, restore, resume the frontier exactly once -----
+    dir_d = os.path.join(tmp, "d")
+    sess_d = _session(None, True, tc, dir_d)
+    rep_d = _Reports(sess_d)
+
+    def crash_at(info):
+        rep_d.on_tick(info)
+        if info.tick == crash:
+            raise SimulatedFailure(f"injected after tick {crash}")
+
+    try:
+        _serve_frontier(sess_d, patterns, stream, seed, lateness, rep_d,
+                        on_tick=crash_at, ckpt_every=SESSION_CKPT_EVERY,
+                        final_checkpoint=False)
+        fail("frontier: the injected crash did not happen")
+    except SimulatedFailure:
+        pass
+    sess_d.close()
+    del sess_d                                   # the crash
+    _free(torch)
+    _sync(torch)
+    t0 = time.perf_counter()
+    sess_r = StreamSession.restore(dir_d, tick_cache=tc, device=DEVICE)
+    _sync(torch)
+    restore_s = time.perf_counter() - t0
+    man = sess_r.restored_ingest
+    step_r = sess_r.service.n_ticks
+    want_step = (crash // SESSION_CKPT_EVERY) * SESSION_CKPT_EVERY
+    if man is None or step_r != want_step:
+        fail(f"frontier: restored at tick {step_r} (want {want_step}) "
+             f"with ingest manifest {man is not None}")
+    if sess_r.service.n_edges_ingested != man["counters"]["n_emitted"]:
+        fail("frontier: the restored service and its ingest cursors "
+             "disagree")
+    lateness_r = max(lateness, _delivered_lateness(stream, seed, man))
+    rep_r = _Reports(sess_r)
+    for sub in sess_r.subscriptions():
+        sub.on_match = rep_r.on_match_for(sub.qid)
+    wall_r, fr_r, srcs_r = _serve_frontier(sess_r, patterns, stream, seed,
+                                           lateness_r, rep_r, resume=man)
+    st_r, _ = _frontier_checks("resumed", fr_r, srcs_r, rep_r.infos,
+                               len(stream), man["counters"]["n_emitted"])
+    once = rep_d.multiset(upto=step_r) + rep_r.multiset()
+    if once != want:
+        fail(f"frontier: restore + resume is not exactly once "
+             f"({sum(once.values())} reports vs {sum(want.values())})")
+    if sess_r.service.n_edges_ingested != len(stream):
+        fail("frontier: the resumed run did not ingest the whole stream")
+    del sess_r
+    _free(torch)
+
+    out = {
+        "phase": "frontier", "tenants": len(patterns), "edges": len(stream),
+        "slots_per_group": SLOTS, "level_capacity": LEVEL_CAP,
+        "max_new": MAX_NEW, "batch": BATCH, "pump_size": FRONTIER_PUMP,
+        "reorder_capacity": FRONTIER_REORDER_CAP,
+        "disorder": FRONTIER_DISORDER, "chaos": FRONTIER_CHAOS,
+        "allowed_lateness": lateness,
+        "script_lateness": script_lateness, "setup_s": setup_s,
+        "timing": timing, "runs": frontier_runs,
+        "matches_total": sum(want.values()),
+        "compat_join_launches": launches,
+        "compat_join_launches_by_slots": {
+            str(k): v for k, v in sorted(by_slots.items())},
+        "instrumented": {"wall_s": wall_i, "ticks": n_tick,
+                         "host_spans": host, "ingest_metrics": metrics},
+        "restore": {"seconds": restore_s, "step": step_r,
+                    "crash_after_tick": crash, "lateness": lateness_r,
+                    "resumed_ticks": len(rep_r.infos),
+                    "resumed_wall_s": wall_r,
+                    "resumed_duplicates": st_r.n_duplicates,
+                    "exactly_once": True},
+    }
+    emit(out)
+    if not launches or not by_slots.get(1) or not by_slots.get(SLOTS):
+        fail(f"frontier: pair launches {launches} by slot count "
+             f"{by_slots}: need S = 1 (prefix nodes) and S = {SLOTS}")
+    return out, launches, by_slots
+
+
+# --------------------------------------------------------------------- #
 # substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
 # --------------------------------------------------------------------- #
 def _pctl(xs, q: float) -> float:
@@ -1804,6 +2174,9 @@ def main(argv=None) -> int:
     _free(torch)
     _, session_launches, session_by_slots = phase_session(torch, args,
                                                           stream)
+    _free(torch)
+    _, frontier_launches, frontier_by_slots = phase_frontier(torch, args,
+                                                             stream)
     del stream
     _free(torch)
     bags = phase_embedding_bag(torch, args.seed)
@@ -1832,6 +2205,9 @@ def main(argv=None) -> int:
               launches_path="serve", launches_session=session_launches,
               launches_session_by_slots={
                   str(k): v for k, v in sorted(session_by_slots.items())},
+              launches_frontier=frontier_launches,
+              launches_frontier_by_slots={
+                  str(k): v for k, v in sorted(frontier_by_slots.items())},
               tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",

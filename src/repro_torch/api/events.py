@@ -17,8 +17,7 @@ timestamped events.  This module is the boundary:
   chunk shapes (``quantize_pow2``) so ad-hoc ingest sizes produce a
   bounded set of batch shapes.
 
-The port of ``repro.api.events`` (the frontier's source hook,
-``as_source``, comes with the ingest slice).
+The port of ``repro.api.events``.
 """
 
 from __future__ import annotations
@@ -130,6 +129,16 @@ def to_data_edge(event, vocab: LabelVocab) -> DataEdge:
         edge_label=vocab.intern(
             UNLABELED if event.label is None else event.label),
     )
+
+
+def as_source(name: str, events, vocab: LabelVocab):
+    """Lower a list of typed ``Event``s (or raw ``DataEdge``s) into a
+    resumable ``repro_torch.stream.ingest.ListSource`` for the ingestion
+    frontier — the session-side source registration hook
+    (``StreamSession.sources``).  The vocab translation happens here,
+    once, so the frontier and engine speak dense ids only."""
+    from repro_torch.stream.ingest import ListSource
+    return ListSource(name, [to_data_edge(e, vocab) for e in events])
 
 
 class Match(NamedTuple):

@@ -37,11 +37,12 @@ one thing that cannot persist; re-attach them on the restored handles.
 
 The port of ``repro.api.session``.  A session runs on the card
 (``device=None`` means CUDA) unless the caller passes ``device="cpu"``.
-Not in this slice: ``mesh=`` (the replica-sharded service) raises
-``NotImplementedError``; ``sources``/``serve_frontier`` (the ingest
-frontier) come with the ingest slice, so ``status()`` reports the
-registry's ``ingest.*`` counters (restored history included) and no
-live frontier.
+``mesh=`` (the replica-sharded service) raises ``NotImplementedError``
+until the mesh slice of the port.  ``serve_frontier`` takes one
+keyword the reference's session does not pass through: ``pump_size``,
+the service's deliveries per source per round (the reference's session
+always uses the service's default of 64), so that a session can fill a
+wide tick from its sources.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from repro_torch.api.events import (
     EventBuffer,
     LabelVocab,
     Match,
+    as_source,
     to_data_edge,
 )
 from repro_torch.api.pattern import Pattern
@@ -255,6 +257,7 @@ class StreamSession:
         mesh: dict | int | None = None,
         obs: MetricsRegistry | None = None,
         tracer=None,
+        *,
         device=None,
         _service: ContinuousSearchService | None = None,
     ):
@@ -298,6 +301,7 @@ class StreamSession:
         # rate (drops / delivered) crosses this; 0 disables the margin
         # (any drop degrades)
         self.late_drop_threshold = late_drop_threshold
+        self._frontier = None
         # session state rides inside every service checkpoint manifest
         self.service.manifest_extra = self._api_manifest
 
@@ -426,6 +430,89 @@ class StreamSession:
         return {self._subs[qid]: n for qid, n in totals.items()
                 if qid in self._subs}
 
+    # ingestion frontier: sources in, watermark-ordered ticks out
+    # ------------------------------------------------------------------ #
+    def sources(self, named_events: dict, resume: dict | None = None,
+                **frontier_kw):
+        """Build an ``IngestFrontier`` over named event streams.
+
+        ``named_events`` maps source name -> a list of typed ``Event``s
+        / raw ``DataEdge``s (vocab-translated here), OR an already-built
+        ``repro_torch.stream.ingest`` ``Source`` (e.g. a chaos-wrapped one),
+        passed through as-is.  ``resume`` is a restored ingest manifest
+        (``session.restored_ingest``): sources reconnect at their ack
+        cursors and replayed deliveries are suppressed — the
+        exactly-once mid-stream resume.  Keyword args flow to
+        ``IngestFrontier`` (``allowed_lateness``, ``retry``, ...).
+
+        ``allowed_lateness`` is an END-TO-END event-time contract, not
+        just a buffer knob: the frontier's watermark (min over live
+        sources of max event time, minus the lateness) gates release
+        AND drives every engine's window clock during
+        ``serve_frontier``, so an event within the allowed lateness is
+        guaranteed to find its still-unexpired join partners, and an
+        event beyond it is rejected-and-counted, never half-joined.
+        Larger lateness = more completeness, staler windows
+        (``SessionStatus.ingest.window_staleness`` gauges the trade).
+        """
+        from repro_torch.stream.ingest import IngestFrontier, Source
+        srcs = [ev if isinstance(ev, Source) else
+                as_source(name, ev, self.vocab)
+                for name, ev in named_events.items()]
+        if resume is not None:
+            return IngestFrontier.resume(resume, srcs, **frontier_kw)
+        return IngestFrontier(srcs, **frontier_kw)
+
+    def serve_frontier(self, frontier, ckpt_every: int = 0,
+                       batch_size: int = 64, min_batch: int | None = None,
+                       max_batch: int | None = None,
+                       target_latency_ms: float = 50.0, on_tick=None,
+                       final_checkpoint: bool = True,
+                       max_idle_rounds: int | None = None, *,
+                       pump_size: int = 64) -> dict:
+        """Serve from an ingestion frontier: retry/dedup per source,
+        deterministic k-way event-time merge, watermark-driven ticking.
+
+        Same contract as ``serve`` otherwise: matches route to each
+        subscription, the AIMD coalescer persists across calls, and
+        checkpoints written during the loop embed the frontier's resume
+        cursors AND its event-time watermark (see ``restored_ingest``) —
+        a restored session resumes the same window clock, so nothing
+        re-expires or resurrects.  Windows are EVENT-time here: the
+        frontier's watermark drives engine admission/expiry every tick
+        (``serve``'s in-process path keeps the classic max-ts clock).
+        ``status()`` reports the frontier's late-drop / forced-gap /
+        duplicate / reconnect accounting, turning DEGRADED when the
+        late-drop rate crosses ``late_drop_threshold`` or any
+        capacity-pressure (forced-gap) drop occurred — no event
+        vanishes silently.  ``pump_size`` is the service's deliveries
+        per source per round (``ContinuousSearchService.serve_frontier``).
+        """
+        self._frontier = frontier
+
+        def _on_match(qid, bindings, ets):
+            sub = self._subs.get(qid)
+            if sub is not None:
+                sub._deliver_rows(bindings, ets)
+
+        if self._coalescer is None:
+            self._coalescer = TickCoalescer.seeded(
+                batch_size, min_batch, max_batch, target_latency_ms)
+        totals = self.service.serve_frontier(
+            frontier, on_match=_on_match, on_tick=on_tick,
+            ckpt_every=ckpt_every, coalescer=self._coalescer,
+            final_checkpoint=final_checkpoint,
+            max_idle_rounds=max_idle_rounds, pump_size=pump_size)
+        return {self._subs[qid]: n for qid, n in totals.items()
+                if qid in self._subs}
+
+    @property
+    def restored_ingest(self) -> dict | None:
+        """Ingest resume manifest from the checkpoint this session was
+        restored from (None on a fresh session): pass to ``sources(...,
+        resume=...)`` to pick the stream back up exactly-once."""
+        return self.service.restored_ingest
+
     # ------------------------------------------------------------------ #
     def subscriptions(self) -> list[Subscription]:
         return [self._subs[qid] for qid in sorted(self._subs)]
@@ -435,9 +522,14 @@ class StreamSession:
         degraded = tuple(qid for qid, s in sorted(self._subs.items())
                          if s.n_overflow > 0)
         # ONE source of truth for ingest health: the obs registry's
-        # ``ingest.*`` counters; after a restore the restored counter
+        # ``ingest.*`` counters.  A live frontier refreshes them first;
+        # after a restore (no frontier bound yet) the restored counter
         # history still reports, so health never silently resets to
         # ACTIVE while the stream's drops persist.
+        ing = None
+        if self._frontier is not None:
+            self._frontier.publish_obs(self.obs)
+            ing = self._frontier.stats()
         n_late = self.obs.counter("ingest.n_late_dropped").value
         n_forced_gap = self.obs.counter("ingest.n_dropped_forced_gap").value
         n_emitted = self.obs.counter("ingest.n_emitted").value
@@ -454,10 +546,12 @@ class StreamSession:
             n_ticks=svc.n_ticks,
             n_compiles=svc.n_compiles,
             degraded=degraded,
+            ingest=ing,
             n_late_dropped=n_late,
             n_duplicates=int(self.obs.counter("ingest.n_duplicates").value),
             n_reconnects=int(self.obs.counter("ingest.n_reconnects").value),
             n_dropped_forced_gap=n_forced_gap,
+            watermark=None if ing is None else ing.watermark,
             health=health,
         )
 
@@ -516,7 +610,7 @@ class StreamSession:
     @classmethod
     def restore(cls, ckpt_dir: str, step: int | None = None,
                 tick_cache=None, backend: str | None = None,
-                obs: MetricsRegistry | None = None,
+                obs: MetricsRegistry | None = None, *,
                 device=None) -> "StreamSession":
         """Rebuild a full session from the newest usable checkpoint:
         original qids, same label vocabulary, same pattern plans, zero

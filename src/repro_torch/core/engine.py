@@ -174,7 +174,7 @@ def _compact(view: _View, mask, size: int):
     )
 
 
-def edge_match_mask(batch: EdgeBatch, esl, edl, eel,
+def edge_match_mask(batch: EdgeBatch, esl, edl, eel, *,
                     valid=None) -> torch.Tensor:
     """Per-query-edge label match mask ``[..., n_qedges, B]``.
 
@@ -489,6 +489,7 @@ def build_tick(
     axis_name: str | None = None,
     n_shards: int = 1,
     prefix_depth: int = 0,
+    *,
     device=None,
 ):
     """Compile ``plan`` into ``tick(state, batch, watermark=None) ->

@@ -65,15 +65,33 @@ class MultiEngineState(NamedTuple):
     active: torch.Tensor    # bool [n_queries]
 
 
-def init_multi_state(plans: Sequence[ExecutionPlan], active=None,
+def init_multi_state(plans: Sequence[ExecutionPlan], active=None, *,
                      device=None) -> MultiEngineState:
     device = resolve_device(device)
     if active is None:
         active = np.ones((len(plans),), bool)
     return MultiEngineState(
-        queries=tuple(init_state(p, device) for p in plans),
+        queries=tuple(init_state(p, device=device) for p in plans),
         active=torch.as_tensor(np.asarray(active, bool), device=device),
     )
+
+
+def set_active(mstate: MultiEngineState, qi: int,
+               value: bool) -> MultiEngineState:
+    """A copy of ``mstate`` with query ``qi``'s ``active`` flag set
+    (the input is left as it was, as the reference's functional update
+    leaves it)."""
+    active = mstate.active.clone()
+    active[qi] = value
+    return mstate._replace(active=active)
+
+
+def reset_query(mstate: MultiEngineState, plans: Sequence[ExecutionPlan],
+                qi: int) -> MultiEngineState:
+    """Replace query ``qi``'s tables with empty ones (e.g. on re-arm)."""
+    qs = list(mstate.queries)
+    qs[qi] = init_state(plans[qi], device=mstate.active.device)
+    return mstate._replace(queries=tuple(qs))
 
 
 def build_multi_tick(
@@ -81,6 +99,7 @@ def build_multi_tick(
     backend: str | None = None,
     extract_matches: bool = True,
     max_out: int | None = None,
+    *,
     device=None,
 ):
     """Fuse ``plans`` into one ``tick(mstate, batch) -> (mstate, results)``.
@@ -156,7 +175,7 @@ def stack_states(states: Sequence[EngineState]) -> EngineState:
 
 
 def init_slot_state(template_plan: ExecutionPlan, n_slots: int,
-                    device=None, prefix_depth: int = 0) -> SlotState:
+                    prefix_depth: int = 0, *, device=None) -> SlotState:
     """Empty slot group of ``n_slots`` unarmed slots on ``device``
     (``None``: the card); with ``prefix_depth``, subquery 0 keeps only
     its suffix levels."""
@@ -164,8 +183,8 @@ def init_slot_state(template_plan: ExecutionPlan, n_slots: int,
     nq = template_plan.query.n_edges
     return SlotState(
         engines=stack_states(
-            [init_state(template_plan, device,
-                        prefix_depth=prefix_depth)] * n_slots),
+            [init_state(template_plan, prefix_depth,
+                        device=device)] * n_slots),
         params=SlotParams(
             esl=torch.zeros((n_slots, nq), dtype=I32, device=device),
             edl=torch.zeros((n_slots, nq), dtype=I32, device=device),
@@ -192,12 +211,12 @@ def write_slot(sstate: SlotState, template_plan: ExecutionPlan, k: int,
 
     ``plan`` must share ``template_plan``'s structural signature — the
     service guarantees this by construction.  Pass a cached ``empty =
-    init_state(template_plan, device)`` to avoid rebuilding the empty
+    init_state(template_plan, device=device)`` to avoid rebuilding the empty
     tables per churn event.
     """
     dev = sstate.params.active.device
     if empty is None:
-        empty = init_state(template_plan, dev)
+        empty = init_state(template_plan, device=dev)
     _reset_engine(sstate, k, empty)
     p = sstate.params
     p.esl[k] = _labels(plan.edge_src_label, dev)
@@ -213,7 +232,8 @@ def clear_slot(sstate: SlotState, template_plan: ExecutionPlan, k: int,
     """Disarm slot ``k`` (unregister): deactivate + drop its tables, in
     place; returns ``sstate``."""
     if empty is None:
-        empty = init_state(template_plan, sstate.params.active.device)
+        empty = init_state(template_plan,
+                           device=sstate.params.active.device)
     _reset_engine(sstate, k, empty)
     sstate.params.active[k] = False
     return sstate
@@ -305,6 +325,16 @@ class SlotTickCache:
         self._ticks: dict[tuple, object] = {}   # insertion-ordered (LRU)
         self.n_builds = 0        # build_slot_tick invocations (cache misses)
 
+    def __len__(self) -> int:
+        return len(self._ticks)
+
+    def ticks(self) -> list:
+        """The cached tick callables, least recently used first."""
+        return list(self._ticks.values())
+
+    def clear(self) -> None:
+        self._ticks.clear()
+
     def _get(self, key, builder):
         tick = self._ticks.pop(key, None)
         if tick is None:
@@ -321,6 +351,7 @@ class SlotTickCache:
         backend: str = J.JoinBackend.REF,
         extract_matches: bool = True,
         max_out: int | None = None,
+        *,
         prefix_depth: int = 0,
     ):
         from repro_torch.core.registry import plan_signature

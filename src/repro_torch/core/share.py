@@ -185,7 +185,7 @@ def node_spec(plan: ExecutionPlan, j: int) -> NodeSpec:
     )
 
 
-def init_node_state(spec: NodeSpec, device=None) -> NodeState:
+def init_node_state(spec: NodeSpec, *, device=None) -> NodeState:
     """Empty node state on ``device`` (``None``: the card)."""
     device = resolve_device(device)
     return NodeState(table=_empty_level(spec.capacity, device),
@@ -336,7 +336,7 @@ class SharedPrefixForest:
     tick.  Owned by one ``ContinuousSearchService``; node ticks come from
     the (usually process-wide) ``SlotTickCache``."""
 
-    def __init__(self, tick_cache, backend: str = J.JoinBackend.REF,
+    def __init__(self, tick_cache, backend: str = J.JoinBackend.REF, *,
                  device=None):
         self.tick_cache = tick_cache
         self.backend = backend
@@ -367,7 +367,7 @@ class SharedPrefixForest:
             esl=self._scalar(esl), edl=self._scalar(edl),
             eel=self._scalar(eel), window=self._scalar(window),
             tick=self.tick_cache.get_node(spec, backend=self.backend),
-            state=init_node_state(spec, self.device),
+            state=init_node_state(spec, device=self.device),
         )
 
     def _new_node(self, plan: ExecutionPlan, j: int, sig: tuple,
@@ -479,6 +479,10 @@ class SharedPrefixForest:
             total += int(node.state.n_overflow)
             node = node.parent
         return total
+
+    def total_overflow(self) -> int:
+        """Dropped appends summed over every node (host reads)."""
+        return sum(int(n.state.n_overflow) for n in self._by_key.values())
 
     def stats(self) -> ForestStats:
         nodes = list(self._by_key.values())

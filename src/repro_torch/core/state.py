@@ -100,9 +100,9 @@ def _empty_l0(capacity: int, nv: int, ne: int, device) -> L0Table:
     )
 
 
-def init_state(plan: ExecutionPlan, device=None,
-               watermark: int | None = None,
-               prefix_depth: int = 0) -> EngineState:
+def init_state(plan: ExecutionPlan, prefix_depth: int = 0,
+               watermark: int | None = None, *,
+               device=None) -> EngineState:
     """Empty tables for ``plan`` on ``device`` (``None``: the card).
 
     With ``prefix_depth > 0`` (cross-tenant prefix sharing,
@@ -156,7 +156,7 @@ class EdgeBatch(NamedTuple):
 
 
 def make_batch(src, dst, ts, src_label, dst_label, edge_label, valid=None,
-               device=None) -> EdgeBatch:
+               *, device=None) -> EdgeBatch:
     """An ``EdgeBatch`` on ``device`` (``None``: the card) from arrays."""
     device = resolve_device(device)
 

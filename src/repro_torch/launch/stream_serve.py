@@ -44,7 +44,7 @@ class StreamServer:
     def __init__(self, plan: ExecutionPlan, ckpt_dir: str | None = None,
                  extract_matches: bool | None = None,
                  backend: str | None = None,
-                 tick_cache=None, device=None):
+                 tick_cache=None, *, device=None):
         """``backend`` / ``extract_matches`` left unset mean: use the
         checkpointed values when restoring (the device's default join
         backend / True when starting fresh) — passing them explicitly

@@ -10,7 +10,7 @@ from repro_torch.core.state import resolve_device
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.float32, device=None):
+               dtype=torch.float32, *, device=None):
     """Normal(0, 1 / fan_in) weights drawn from ``gen`` (a generator on
     ``device``).  The numbers differ from ``jax.random``'s; tests carry
     the reference's weights across with ``params_from_numpy``."""

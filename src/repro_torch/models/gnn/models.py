@@ -31,13 +31,18 @@ class GNNConfig:
     n_layers: int = 2
     d_in: int = 16
     d_hidden: int = 8
+    # the reference's fields after d_hidden (n_heads, aggregators, ...)
+    # belong to GAT/PNA/NequIP, which are not ported: the rest is
+    # keyword-only, so no positional config means another field here
+    _: dataclasses.KW_ONLY
     n_classes: int = 7
     eps_learnable: bool = True
     backend: str | None = None     # segment_sum: None = device default
     dtype: torch.dtype = torch.float32
 
 
-def gin_init(cfg: GNNConfig, gen: torch.Generator, device=None) -> dict:
+def gin_init(gen: torch.Generator, cfg: GNNConfig, *,
+             device=None) -> dict:
     """Seeded GIN parameters in the reference's tree layout, made on
     ``device`` from ``gen`` (a generator on that device)."""
     device = resolve_device(device)
@@ -73,7 +78,7 @@ class GIN(nn.Module):
         self.backend = resolve_backend(cfg.backend, device)
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            params = gin_init(cfg, gen, device)
+            params = gin_init(gen, cfg, device=device)
         self.layers = nn.ModuleList(
             nn.ParameterDict({k: nn.Parameter(lp[k].to(device))
                               for k in self.KEYS})

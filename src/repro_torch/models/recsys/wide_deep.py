@@ -41,7 +41,8 @@ class WideDeepConfig:
     dtype: torch.dtype = torch.float32
 
 
-def init(cfg: WideDeepConfig, gen: torch.Generator, device=None) -> dict:
+def init(gen: torch.Generator, cfg: WideDeepConfig, *,
+         device=None) -> dict:
     """Seeded parameters in the reference's tree layout, made on
     ``device`` from ``gen`` (a generator on that device)."""
     device = resolve_device(device)
@@ -74,7 +75,7 @@ class WideDeep(nn.Module):
         self.backend = resolve_backend(cfg.backend, device)
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
-            params = init(cfg, gen, device)
+            params = init(gen, cfg, device=device)
         self.tables = nn.Parameter(params["tables"].to(device))
         self.wide = nn.Parameter(params["wide"].to(device))
         self.mlp_w = nn.ParameterList(

@@ -24,6 +24,13 @@ checkpoints, and restore.
   per-tick barrier latency, chunks are padded to power-of-two shapes,
   matches stream out through ``on_match(qid, bindings, ets)``, and every
   ``ckpt_every`` ticks the service state is checkpointed asynchronously.
+* ``serve_frontier(frontier, ...)`` is the same loop fed by an
+  ``IngestFrontier`` (``repro_torch.stream.ingest``: sources, retry,
+  dedup, event-time merge): it ticks on watermark advance and hands the
+  frontier's watermark to every engine as one int32 device scalar per
+  tick (event-time admission and expiry); checkpoints embed the
+  frontier's resume cursors, which ``restore`` surfaces as
+  ``restored_ingest``.
 
 Cross-tenant prefix sharing (``enable_sharing=True``,
 ``repro_torch.core.share``): each registration acquires a refcounted
@@ -55,8 +62,11 @@ read and no clock read per tick.
 The service runs on the card (``device=None`` means CUDA) unless the
 caller passes ``device="cpu"``; its joins default to the CUDA kernel on
 the card and to the plain version on the CPU (``JoinBackend``).  The
-ingest frontier (``serve_frontier``) is the next slice of the port; the
-mesh (replica-sharded) service the one after.
+constructor's positional parameters are the reference's up to
+``max_out``; the reference's next two, ``jit`` and ``donate``, have no
+meaning here, so every parameter after ``max_out`` is keyword-only (a
+positional call in the reference's order fails loudly instead of
+shifting).  The mesh (replica-sharded) service is a later slice.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ from repro_torch.checkpoint import (
     validate_checkpoint,
 )
 from repro_torch.core import join as J
-from repro_torch.core.engine import TickResult, current_matches
+from repro_torch.core.engine import NO_WATERMARK, TickResult, current_matches
 from repro_torch.core.multi import (
     GLOBAL_SLOT_TICK_CACHE,
     SlotState,
@@ -123,6 +133,15 @@ class ServeInfo(NamedTuple):
     n_overflow: int = 0     # dropped appends this tick, summed over qids
                             # (shared-prefix drops attributed per tenant)
     n_shared_prefix_ticks: int = 0   # forest nodes advanced this tick
+    # ingest-frontier observability (``serve_frontier`` only; the plain
+    # ``serve_stream`` path leaves the defaults)
+    watermark: int | None = None     # event-time watermark after this tick
+    n_late_dropped: int = 0          # frontier late drops this tick
+    n_duplicates: int = 0            # suppressed duplicate deliveries, tick
+    n_reconnects: int = 0            # source reconnects this tick
+    n_dropped_forced_gap: int = 0    # capacity-pressure drops this tick
+    watermark_lag: int = 0           # freshest data ts − watermark
+    window_staleness: int = 0        # emit floor − watermark (forced gap)
 
 
 @dataclass(eq=False)       # identity semantics: fields hold device tensors
@@ -160,6 +179,7 @@ class ContinuousSearchService:
         backend: str | None = None,
         extract_matches: bool = True,
         max_out: int | None = None,
+        *,
         ckpt_dir: str | None = None,
         keep_checkpoints: int = 8,
         tick_cache: SlotTickCache | None = None,
@@ -191,6 +211,8 @@ class ContinuousSearchService:
             if enable_sharing else None)
         self._prefix_of: dict[int, object] = {}   # qid -> leaf PrefixNode
         self._next_gid = 0
+        self._frontier = None        # IngestFrontier bound by serve_frontier
+        self.restored_ingest = None  # ingest manifest from restore()
         self._ckpt_step = 0          # last step id written (monotonic)
         if compact_every < 1:
             raise ValueError("compact_every must be >= 1")
@@ -247,9 +269,9 @@ class ContinuousSearchService:
             gid=self._next_gid,
             template=template,
             tick=tick,
-            sstate=init_slot_state(template, self.slots_per_group,
-                                   self.device, prefix_depth=depth),
-            empty=init_state(template, self.device, prefix_depth=depth),
+            sstate=init_slot_state(template, self.slots_per_group, depth,
+                                   device=self.device),
+            empty=init_state(template, depth, device=self.device),
             qids=[None] * self.slots_per_group,
             prefix=leaf,
         )
@@ -582,6 +604,134 @@ class ContinuousSearchService:
                 self.checkpoint()       # final end-of-call durability
             self.ckpt.wait()
 
+    def _watermark_scalar(self, wm: int | None) -> torch.Tensor:
+        """The tick's event-time watermark as ONE int32 device scalar,
+        filled on the device (no host-to-device copy); every group and
+        forest node of the tick reads this tensor.  ``NO_WATERMARK`` is
+        the "unknown yet" identity of the event-time clock."""
+        return torch.full((), NO_WATERMARK if wm is None else wm,
+                          dtype=torch.int32, device=self.device)
+
+    def serve_frontier(
+        self,
+        frontier,
+        on_match=None,
+        on_tick=None,
+        ckpt_every: int = 0,
+        batch_size: int = 64,
+        min_batch: int | None = None,
+        max_batch: int | None = None,
+        target_latency_ms: float = 50.0,
+        coalescer: TickCoalescer | None = None,
+        final_checkpoint: bool = True,
+        pump_size: int = 64,
+        max_idle_rounds: int | None = None,
+    ) -> dict[int, int]:
+        """Drive the service from an ``IngestFrontier`` (the real-traffic
+        production loop): sources -> retry/dedup -> k-way merge ->
+        watermark -> tick.
+
+        The coalescer ticks on WATERMARK ADVANCE, not arrival order:
+        each round pumps every live source (``pump_size`` deliveries a
+        source at most), takes the events the watermark has released
+        (in merged event-time order, at most the coalescer's batch), and
+        ticks only when something is ready — an all-sources stall is an
+        idle round (``TickCoalescer.record_idle``), not a tick.  The
+        frontier stays bound to the service, so checkpoints embed its
+        resume state (per-source ack cursors, emit floor, watermark):
+        ``restore`` surfaces it as ``restored_ingest`` and
+        ``IngestFrontier.resume`` picks the stream back up exactly once.
+
+        Event time end to end: each tick hands the frontier's
+        ``watermark()`` to every engine and forest node as one int32
+        device scalar (built once per tick, filled on the device), so
+        window admission and expiry follow event time, not the order
+        the reorder buffer released in.
+
+        ``ServeInfo`` gains the frontier fields: ``watermark``, the
+        ``watermark_lag`` / ``window_staleness`` gauges, and the per-tick
+        ``n_late_dropped`` / ``n_dropped_forced_gap`` / ``n_duplicates``
+        / ``n_reconnects`` deltas.  ``max_idle_rounds`` bounds how many
+        consecutive empty rounds to tolerate before returning (None:
+        serve until every source is exhausted; a source whose retry
+        budget is spent counts as exhausted).  With a tracer, each tick
+        records ``ingest.pump`` and ``ingest.release`` spans; with a
+        registry, ``frontier.publish_obs`` mirrors the frontier's
+        counters under ``ingest.*`` — both behind identity checks, so a
+        service with both off reads no extra clock.  Returns ``{qid:
+        total new matches}``.
+        """
+        if on_match is not None and not self.extract_matches:
+            raise ValueError(
+                "on_match requires a service with extract_matches=True")
+        if ckpt_every and self.ckpt is None:
+            raise ValueError(
+                "ckpt_every requires a service with ckpt_dir set — "
+                "without it every checkpoint would be a silent no-op")
+        if coalescer is None:
+            coalescer = TickCoalescer.seeded(
+                batch_size, min_batch, max_batch, target_latency_ms)
+        totals: dict[int, int] = {}
+        # stays bound after return, so later checkpoints (tenant churn,
+        # shutdown) keep embedding the stream cursors
+        self._frontier = frontier
+        prev = frontier.stats()
+        idle = 0
+        while not frontier.exhausted:
+            tr = self.tracer
+            t_pump = time.perf_counter() if tr is not None else 0.0
+            frontier.pump(pump_size)
+            t_rel = time.perf_counter() if tr is not None else 0.0
+            chunk = frontier.take_ready(limit=coalescer.batch)
+            t_done = time.perf_counter() if tr is not None else 0.0
+            if not chunk:
+                idle += 1
+                coalescer.record_idle()
+                if self.obs is not None:
+                    self._observe_coalescer(coalescer)
+                if max_idle_rounds is not None and idle > max_idle_rounds:
+                    break
+                continue
+            idle = 0
+            wm_in = self._watermark_scalar(frontier.watermark())
+            lat_ms, tick_overflow, n_shared = self._tick_chunk(
+                chunk, on_match, totals, wm_in)
+            if tr is not None:
+                # recorded after _tick_chunk so the spans carry this
+                # tick's correlation id (next_tick advances in there)
+                tr.record("ingest.pump", (t_rel - t_pump) * 1e3)
+                tr.record("ingest.release", (t_done - t_rel) * 1e3,
+                          n_released=len(chunk))
+            coalescer.record(lat_ms, frontier.buffered, tick_overflow)
+            if self.obs is not None:
+                self._observe_coalescer(coalescer)
+                frontier.publish_obs(self.obs)
+            if self.ckpt and ckpt_every and \
+                    self.n_ticks % ckpt_every == 0:
+                self.checkpoint()
+            if on_tick is not None:
+                cur = frontier.stats()
+                on_tick(ServeInfo(
+                    tick=self.n_ticks,
+                    n_edges_ingested=self.n_edges_ingested,
+                    chunk=len(chunk),
+                    latency_ms=lat_ms,
+                    n_overflow=tick_overflow,
+                    n_shared_prefix_ticks=n_shared,
+                    watermark=cur.watermark,
+                    n_late_dropped=cur.n_late_dropped
+                    - prev.n_late_dropped,
+                    n_duplicates=cur.n_duplicates - prev.n_duplicates,
+                    n_reconnects=cur.n_reconnects - prev.n_reconnects,
+                    n_dropped_forced_gap=cur.n_dropped_forced_gap
+                    - prev.n_dropped_forced_gap,
+                    watermark_lag=cur.watermark_lag,
+                    window_staleness=cur.window_staleness,
+                ))
+                prev = cur
+        self._final_checkpoint(ckpt_every, final_checkpoint)
+        return totals
+
     # ------------------------------------------------------------------ #
     # checkpoint / restore
     # ------------------------------------------------------------------ #
@@ -589,8 +739,10 @@ class ContinuousSearchService:
         """JSON-serializable description of everything that is NOT a
         device tensor: config, registry, slot layout, forest, counters.
         The reference's keys; ``config.backend`` names the port's join
-        backend, and ``jit``/``donate`` are False (the port has neither);
-        ``ingest`` is None until the ingest frontier is ported."""
+        backend, and ``jit``/``donate`` are False (the port has neither).
+        ``ingest`` is the bound frontier's resume state (per-source ack
+        cursors, emit floor, watermark, counters), None before any
+        ``serve_frontier``."""
         extra = (self.manifest_extra() if callable(self.manifest_extra)
                  else self.manifest_extra)
         return {
@@ -638,7 +790,10 @@ class ContinuousSearchService:
             },
             "forest": (None if self.forest is None
                        else self.forest.to_manifest()),
-            "ingest": None,
+            # stays bound after serve_frontier returns, so a later
+            # checkpoint still carries the stream cursors
+            "ingest": (None if self._frontier is None
+                       else self._frontier.to_manifest()),
             "counters": {
                 "n_edges_ingested": int(self.n_edges_ingested),
                 "n_ticks": int(self.n_ticks),
@@ -709,6 +864,7 @@ class ContinuousSearchService:
         extract_matches: bool | None = None,
         obs: MetricsRegistry | None = None,
         tracer: Tracer | None = None,
+        *,
         device=None,
     ) -> "ContinuousSearchService":
         """Rebuild a full multi-tenant service from a checkpoint.
@@ -769,6 +925,7 @@ class ContinuousSearchService:
         svc = cls(ckpt_dir=ckpt_dir, tick_cache=tick_cache, device=device,
                   **{**config, **overrides})
         svc.manifest_extra = man.get("extra", {})
+        svc.restored_ingest = man.get("ingest")
         for qid_s, ent in man["queries"].items():
             svc.registry.adopt(
                 int(qid_s), QueryGraph.from_spec(ent["query"]),

@@ -1,8 +1,7 @@
 """Synthetic streaming-graph generators + query generation (paper §6.1-6.2).
 
-A copy of ``repro.stream.generator``'s generators (the same seeds give the
-same streams); the disorder / multi-source delivery models belong to the
-ingest slice of the port.
+A copy of ``repro.stream.generator`` (the same seeds give the same
+streams and the same delivery scripts).
 
 Two stream families mirror the paper's datasets:
 
@@ -141,6 +140,80 @@ def random_walk_query(
         edge_labels=tuple(elabels),
         prec=prec,
     )
+
+
+# --------------------------------------------------------------------- #
+# disorder / multi-source emission (one seeded traffic model shared by
+# the ingest tests, the chaos example and chip_smoke.py's frontier phase)
+# --------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class DisorderConfig:
+    """Seeded out-of-order / multi-source delivery model.
+
+    The all-default config is the identity: one source, canonical order,
+    no duplicates (``disordered_sources(stream)`` == the input stream as
+    one identity script) — existing callers are untouched.
+
+    * ``n_sources``      split the stream across k sources (seeded
+      assignment; each source keeps its events' chronological order);
+    * ``disorder_frac``  fraction of deliveries displaced to arrive
+      late, by a lateness drawn uniformly from ``1..max_delay``
+      delivery positions (a bounded lateness distribution);
+    * ``duplicate_rate`` fraction of deliveries re-delivered a few
+      positions later with their original sequence number (transport
+      duplicates: suppressed-and-counted downstream, never new events).
+    """
+
+    n_sources: int = 1
+    disorder_frac: float = 0.0
+    max_delay: int = 8
+    duplicate_rate: float = 0.0
+    seed: int = 0
+
+
+def split_stream(stream: list[DataEdge], n_sources: int,
+                 seed: int = 0) -> list[list[DataEdge]]:
+    """Seeded partition of a stream across ``n_sources``, preserving
+    each source's chronological order (events interleave ACROSS sources
+    the way independent capture points would emit them)."""
+    rng = np.random.default_rng(seed)
+    owner = rng.integers(0, n_sources, len(stream))
+    return [[e for e, o in zip(stream, owner) if o == s]
+            for s in range(n_sources)]
+
+
+def disordered_sources(
+    stream: list[DataEdge],
+    cfg: DisorderConfig = DisorderConfig(),
+) -> list[list[tuple[int, DataEdge]]]:
+    """Per-source delivery scripts ``[(seq, edge), ...]`` for
+    ``repro_torch.stream.ingest.ScriptedSource``: the stream split across
+    ``cfg.n_sources``, each source's deliveries displaced and duplicated
+    per the config.  ``seq`` is the source's canonical order — repeated
+    seqs are duplicate deliveries, out-of-order seqs are reordering —
+    so the scripts stay exactly reconciliable with the original stream.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    scripts = []
+    for part in split_stream(stream, cfg.n_sources, cfg.seed):
+        deliveries = list(enumerate(part))
+        # bounded-lateness displacement: sort by (position + delay)
+        if cfg.disorder_frac > 0 and cfg.max_delay > 0:
+            late = rng.random(len(deliveries)) < cfg.disorder_frac
+            delay = rng.integers(1, cfg.max_delay + 1, len(deliveries))
+            order = np.argsort(
+                np.arange(len(deliveries)) + np.where(late, delay, 0),
+                kind="stable")
+            deliveries = [deliveries[i] for i in order]
+        if cfg.duplicate_rate > 0:
+            out = []
+            for d in deliveries:
+                out.append(d)
+                if rng.random() < cfg.duplicate_rate:
+                    out.append(d)     # immediate re-delivery, same seq
+            deliveries = out
+        scripts.append(deliveries)
+    return scripts
 
 
 # --------------------------------------------------------------------- #

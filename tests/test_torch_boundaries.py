@@ -62,7 +62,9 @@ MODULES = [
     "repro_torch.obs.export", "repro_torch.obs.summarize",
     "repro_torch.api", "repro_torch.api.events", "repro_torch.api.pattern",
     "repro_torch.api.planner", "repro_torch.api.session",
-    "repro_torch.launch.stream_serve",
+    "repro_torch.launch.stream_serve", "repro_torch.stream",
+    "repro_torch.stream.ingest", "repro_torch.stream.chaos",
+    "repro_torch.runtime", "repro_torch.runtime.fault",
 ]
 
 
@@ -108,21 +110,44 @@ def _plan():
     "service", "service_cuda_device", "wide_deep", "gin",
     "batch_to_device", "graph_to_device", "params_from_numpy",
     "shared_service", "init_node_state", "stream_session", "stream_server",
-    "service_restore"])
+    "service_restore", "session_frontier", "service_frontier",
+    "session_restore_ingest"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
     from repro_torch.core.share import init_node_state, node_spec
     from repro_torch.launch.stream_serve import StreamServer
 
+    from repro_torch.core.oracle import DataEdge
+    from repro_torch.stream.ingest import IngestFrontier, ListSource
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     plan = _plan()
     ckpt = tmp_path / "ckpt"
-    if entry == "service_restore":
-        svc = ContinuousSearchService(device="cpu", ckpt_dir=str(ckpt))
+
+    def frontier():
+        return IngestFrontier([ListSource("a", [
+            DataEdge(0, 1, t, 0, 1, 0) for t in range(5)])],
+            sleep=lambda d: None)
+
+    def serve_session(sess):
+        sess.register_query(plan.query, plan.window)
+        return sess.serve_frontier(sess.sources(
+            {"a": [DataEdge(0, 1, t, 0, 1, 0) for t in range(5)]}))
+
+    def serve_service(svc):
         svc.register(plan.query, plan.window)
-        svc.checkpoint()
-        svc.ckpt.wait()
+        return svc.serve_frontier(frontier())
+    if entry in ("service_restore", "session_restore_ingest"):
+        sess = StreamSession(device="cpu", ckpt_dir=str(ckpt))
+        sess.register_query(plan.query, plan.window)
+        sess.serve_frontier(frontier(), ckpt_every=1)
+        sess.service.ckpt.wait()
     calls = {
+        "session_frontier": lambda **kw: serve_session(StreamSession(**kw)),
+        "service_frontier": lambda **kw: serve_service(
+            ContinuousSearchService(**kw)),
+        "session_restore_ingest": lambda **kw: StreamSession.restore(
+            str(ckpt), **kw).restored_ingest,
         "shared_service": lambda **kw: ContinuousSearchService(
             enable_sharing=True, **kw),
         "init_node_state": lambda **kw: init_node_state(node_spec(plan, 1),
@@ -200,9 +225,10 @@ def test_cuda_backend_with_cpu_tensors_raises():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """The mesh slice: capacity sharding, replica-sharded sessions and
-    sharded checkpoints raise; shared prefixes are served now, and only
-    an out-of-range depth is refused."""
+    """The mesh slice: capacity sharding, replica-sharded sessions,
+    sharded checkpoints and a sharded restore in ``FaultTolerantLoop``
+    raise; shared prefixes are served now, and only an out-of-range
+    depth is refused."""
     from repro_torch.api import StreamSession
     from repro_torch.checkpoint import save_checkpoint
 
@@ -215,6 +241,10 @@ def test_later_slices_raise_not_implemented(tmp_path):
     engine.build_tick_body(_plan(), prefix_depth=2)
     with pytest.raises(ValueError, match="out of range"):
         engine.build_tick_body(_plan(), prefix_depth=3)
+    from repro_torch.runtime.fault import FaultTolerantLoop
+    with pytest.raises(NotImplementedError, match="mesh"):
+        FaultTolerantLoop(str(tmp_path / "loop"), lambda s, i: s,
+                          lambda: 0, mesh=object())
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -634,3 +634,76 @@ def test_cuda_checkpoint_restores_onto_the_card(cuda, tmp_path):
         assert back.matches(qid) == svc.matches(qid) == cpu.matches(qid)
         for x, y in zip(_leaves(back.state(qid)), _leaves(svc.state(qid))):
             assert x.is_cuda and torch.equal(x, y)
+
+
+def test_frontier_on_card_equals_ref_frontier_and_serve_stream(cuda):
+    """The ingest frontier on the CUDA backend: a chaos-wrapped,
+    disordered multi-source frontier served with prefix sharing gives
+    the per-tenant reports of the same frontier on the REF backend (every
+    table leaf equal) and of an uninterrupted ``serve_stream``; the
+    watermark reaches the engines as an int32 scalar on the card."""
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.runtime.fault import RetryPolicy
+    from repro_torch.runtime.service import ContinuousSearchService
+    from repro_torch.stream.chaos import ChaosConfig, ChaosSource
+    from repro_torch.stream.generator import DisorderConfig, \
+        disordered_sources
+    from repro_torch.stream.ingest import IngestFrontier, ScriptedSource
+
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=4096, n_vertices=3000, n_vertex_labels=3, n_edge_labels=2,
+        seed=9, ts_step_max=2))
+    cap = dict(level_capacity=8192, l0_capacity=8192, max_new=4096)
+
+    def frontier():
+        scripts = disordered_sources(stream, DisorderConfig(
+            n_sources=3, disorder_frac=0.3, max_delay=6,
+            duplicate_rate=0.1, seed=1))
+        return IngestFrontier(
+            [ChaosSource(ScriptedSource(f"s{i}", sc), ChaosConfig(
+                seed=2 + i, p_disconnect=0.08, p_duplicate=0.05,
+                reorder_span=3, p_reorder=0.2, p_stall=0.05, p_torn=0.05))
+             for i, sc in enumerate(scripts)],
+            allowed_lateness=600, reorder_capacity=1 << 16,
+            retry=RetryPolicy(max_attempts=8, base_delay_s=0.0),
+            sleep=lambda d: None)
+
+    def svc(backend):
+        s = ContinuousSearchService(
+            slots_per_group=4, tick_cache=SlotTickCache(), backend=backend,
+            enable_sharing=True, device="cuda", **cap)
+        for q in _share_queries():
+            s.register(q, 120)
+        return s
+
+    def serve(s, fr):
+        from collections import Counter
+        got = Counter()
+
+        def on_match(qid, bind, ets):
+            got.update((qid,) + tuple(map(int, b)) + tuple(map(int, e))
+                       for b, e in zip(bind, ets))
+        infos = []
+        s.serve_frontier(fr, on_match=on_match, on_tick=infos.append,
+                         batch_size=256, min_batch=256, max_batch=256,
+                         pump_size=96)
+        return got, infos
+
+    assert svc("cuda")._watermark_scalar(5).device.type == "cuda"
+    before = ops.compat_join_pairs.launches
+    card = svc("cuda")
+    got, infos = serve(card, frontier())
+    assert ops.compat_join_pairs.launches > before
+    plain = svc("ref")
+    want, _ = serve(plain, frontier())
+    assert got == want and got
+    assert all(i.n_late_dropped == 0 and i.n_overflow == 0 for i in infos)
+    for qid in card.registry.qids():
+        for x, y in zip(_leaves(card.state(qid)), _leaves(plain.state(qid))):
+            assert torch.equal(x, y)
+    for a, b in zip(card.forest.nodes(), plain.forest.nodes()):
+        for x, y in zip(_leaves(a.state), _leaves(b.state)):
+            assert torch.equal(x, y)
+    canon = svc("cuda")
+    want_stream, _ = _serve_reports(canon, stream)
+    assert got == want_stream

@@ -457,7 +457,7 @@ def test_single_query_tick_over_a_prefix_view_equals_reference(query):
     rtick = ref_build_tick(rplan, prefix_depth=1)
     tick = build_tick(plan, prefix_depth=1, device="cpu")
     rstate = ref_init_state(rplan, prefix_depth=1)
-    state = init_state(plan, "cpu", prefix_depth=1)
+    state = init_state(plan, prefix_depth=1, device="cpu")
     n_new = 0
     for b in to_batches(stream160(seed=7), 16):
         rviews, _ = rforest.advance(ref_make_batch(**b))

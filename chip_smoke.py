@@ -11,8 +11,9 @@ exit, nothing is caught and skipped):
   build         nvcc builds every kernel library from its csrc/ source,
                 one nvcc per source, all at once (ptxas -v lines);
   kernel_cases  the compat-join pair kernel against its plain version at
-                the serving path's join shapes, over a slot group of 8
-                and at S = 1: outputs equal element for element;
+                the serving path's join shapes, over a slot group of 8,
+                at S = 1 and at S = 4 (a mesh replica block): outputs
+                equal element for element;
                 CUDA-event times (median of 20) beside the plain
                 version's and the least time the card could take; each
                 call's device time by kernel (cj_count / cj_scan /
@@ -79,6 +80,24 @@ exit, nothing is caught and skipped):
                 fields summed, pump and release ms per tick (the
                 tracer's ``ingest.pump``/``ingest.release`` spans in an
                 instrumented turn) and the restore seconds;
+  mesh          replica-sharded serving (``ShardedSearchService``) with R
+                logical replicas on the card: the serve phase's tenants,
+                capacities, batches and ticks at (n_replicas,
+                slots_per_replica) in (1, 8), (2, 4) and (8, 1), so a
+                group is 8 slots high; checks: overflow 0, per-tenant
+                matches equal to the single-device service's, the summed
+                ``MeshTickStats.n_matches`` equal to the reports, the
+                clock equal to the engines' largest, at R = 1 every table
+                leaf equal to the single-device service's, the pair
+                kernel launched at S = slots_per_replica only; a REF
+                sharded service at (2, 4) over the parity ticks with
+                identical tables; a mesh ``StreamSession`` (2 x 4, prefix
+                sharing) checkpointed every 16 ticks into per-replica
+                shard files, crashed after tick 40, restored onto 2
+                replicas with zero warm builds and onto 8 (the reshard
+                path), replaying exactly once each time, the
+                ``replica_refcounts`` partition checked; prints edges/s
+                and tick p50/p99 for each R and the session;
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
@@ -97,8 +116,8 @@ exit, nothing is caught and skipped):
                 against the plain-version forward.
 
 Each path's kernel launch counter is zeroed just before the path is
-driven and read just after (serve, session, frontier, each mask case's
-entry-point call, recsys_serve, gin_infer).  Then a {"kernels": [...]}
+driven and read just after (serve, session, frontier, each mesh run,
+each mask case's entry-point call, recsys_serve, gin_infer).  Then a {"kernels": [...]}
 line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
@@ -513,8 +532,9 @@ def _bound(nbytes: float, nops: float, ops_per_s: float):
 
 def phase_kernels(torch, seed: int):
     """The pair kernel against its plain version at the serving path's
-    join shapes: over a slot group of 8 (row 2 of the kernel table) and
-    at S = 1 (row 1, a single query's tick)."""
+    join shapes: over a slot group of 8 (row 2 of the kernel table), at
+    S = 1 (row 1, a single query's tick) and at S = 4 (a replica block
+    of the mesh phase's 2 x 4 layout)."""
     import numpy as np
 
     from repro_torch.kernels.compat_join import kernel, ops, ref
@@ -525,6 +545,8 @@ def phase_kernels(torch, seed: int):
     worst = 0
     cases = [(SLOTS, "", c) for c in _join_cases(rng, SLOTS)]
     cases += [(1, "s1_", c) for c in _join_cases(rng, 1)]
+    # the mesh phase's other width (2 replicas of 4 slots)
+    cases += [(4, "s4_", c) for c in _join_cases(rng, 4)]
     for n_slots, prefix, (name, (a, b, rel, trel), win, max_new) in cases:
         name = prefix + name
         tensors = [torch.as_tensor(x, device=dev) for x in (*a, *b)]
@@ -568,7 +590,7 @@ def phase_kernels(torch, seed: int):
         })
         worst = max(worst, err)
         del tensors, got, want
-    for prefix in ("", "s1_"):
+    for prefix in ("", "s1_", "s4_"):
         if not any(r["n_dropped"] for r in results
                    if r["case"] == prefix + "level_overflow"):
             fail(f"the {prefix}level_overflow case dropped no pairs")
@@ -1612,6 +1634,308 @@ def phase_frontier(torch, args, stream):
 
 
 # --------------------------------------------------------------------- #
+# mesh: replica-sharded serving (logical replicas on the one card)
+# --------------------------------------------------------------------- #
+MESH_SHAPES = ((1, 8), (2, 4), (8, 1))     # (n_replicas, slots_per_replica)
+MESH_SESSION = {"n_replicas": 2, "slots_per_replica": 4}
+MESH_RESHARD = 8                            # replicas of the reshard restore
+
+
+def run_mesh(backend, stream, n_replicas, spr, snapshot_tick=None,
+             n_ticks=None):
+    """Serve ``stream`` (its first ``n_ticks`` batches, if given) through
+    a fresh ``ShardedSearchService`` of ``n_replicas`` logical replicas
+    on the card, with the serve phase's tenants and capacities; returns
+    the service, qids, ServeInfos, per-qid match multisets, the per-tick
+    sums of ``MeshTickStats.n_matches``, the per-tenant state snapshot at
+    ``snapshot_tick`` and the wall seconds.  Match rows are kept as
+    arrays in the loop and counted after it."""
+    import torch
+
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.runtime.mesh import ShardedSearchService
+
+    svc = ShardedSearchService(
+        n_replicas, spr, devices=(DEVICE,) * n_replicas,
+        level_capacity=LEVEL_CAP, l0_capacity=LEVEL_CAP, max_new=MAX_NEW,
+        backend=backend, tick_cache=SlotTickCache())
+    qids = [svc.register(q, w) for _, q, w in tenants(stream)]
+    infos, rows, stat_matches, snap = [], [], [], {}
+
+    def on_match(qid, bind, ets):
+        rows.append((len(infos), qid, bind.copy(), ets.copy()))
+
+    def on_tick(info):
+        infos.append(info)
+        stat_matches.append(sum(v["n_matches"] for v in
+                                svc.last_mesh_stats().values()))
+        if len(infos) == snapshot_tick:
+            for q in qids:
+                snap[q] = state_to_numpy(svc.state(q))
+
+    _sync(torch)
+    t0 = time.perf_counter()
+    served = stream if n_ticks is None else stream[:n_ticks * BATCH]
+    svc.serve_stream(served, on_match=on_match, on_tick=on_tick,
+                     batch_size=BATCH, min_batch=BATCH, max_batch=BATCH)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    matches = {q: Counter() for q in qids}
+    upto = {q: Counter() for q in qids}
+    for tick, q, bind, ets in rows:
+        got = [tuple(map(int, b)) + tuple(map(int, e))
+               for b, e in zip(bind, ets)]
+        matches[q].update(got)
+        if snapshot_tick is not None and tick < snapshot_tick:
+            upto[q].update(got)
+    return svc, qids, infos, matches, upto, stat_matches, snap, wall
+
+
+def _mesh_tables_equal(torch, single, mesh) -> int:
+    """R = 1: every group table of the mesh service equals the
+    single-device service's, leaf for leaf; returns the leaves
+    compared."""
+    ga, gb = single._iter_groups(), mesh._iter_groups()
+    if [g.qids for g in ga] != [g.qids for g in gb]:
+        fail("mesh: the R = 1 slot layout differs from the single-device "
+             "service's")
+    n = 0
+    for a, b in zip(ga, gb):
+        for x, y in zip(_flat(a.sstate), _flat(b.sstate[0])):
+            if x.shape != y.shape or not torch.equal(x, y):
+                fail(f"mesh: R = 1 group {a.gid}: a table leaf differs from "
+                     "the single-device service's")
+            n += 1
+    return n
+
+
+def phase_mesh(torch, args, stream):
+    """Replica-sharded serving on the card: ``ShardedSearchService`` at
+    (n_replicas, slots_per_replica) in (1, 8), (2, 4), (8, 1) — R
+    logical replicas on ``cuda:0``, a group 8 slots high as in the serve
+    phase — against the single-device service; a REF sharded service at
+    (2, 4) over the parity ticks; and a mesh ``StreamSession`` with
+    prefix sharing through a crash, a same-size restore and an 8-replica
+    reshard."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import StreamSession
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.kernels.compat_join import ops
+    from repro_torch.runtime.mesh import ShardedSearchService
+
+    # the single-device service's answer (untimed; the serve phase's path)
+    single, sq, _, want, _, _, _ = run_service(None, stream)
+    total = sum(sum(c.values()) for c in want.values())
+    if total <= 0:
+        fail("mesh: the single-device service found no matches")
+    runs, by_replicas, by_slots_all = [], {}, Counter()
+    cuda24 = None
+    for n_rep, spr in MESH_SHAPES:
+        _free(torch)
+        ops.compat_join_pairs.launches = 0       # counts of this mesh path
+        ops.compat_join_pairs.launches_by_slots.clear()
+        svc, qids, infos, got, upto, stat_m, snap, wall = run_mesh(
+            None, stream, n_rep, spr,
+            snapshot_tick=args.parity_ticks if (n_rep, spr) == (2, 4)
+            else None)
+        launches = ops.compat_join_pairs.launches
+        by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+        what = f"mesh R = {n_rep} x {spr}"
+        if svc.backend != "cuda" and DEVICE == "cuda":
+            fail(f"{what}: backend {svc.backend}, not cuda")
+        if qids != list(sq):
+            fail(f"{what}: other qids than the single-device service")
+        overflow = svc.overflow_pressure()
+        if overflow or any(i.n_overflow for i in infos):
+            fail(f"{what}: overflow {overflow}")
+        for q in qids:
+            if got[q] != want[q]:
+                fail(f"{what}: qid {q}: match multisets differ from the "
+                     f"single-device service's ({sum(got[q].values())} vs "
+                     f"{sum(want[q].values())})")
+        n_got = sum(sum(c.values()) for c in got.values())
+        if sum(stat_m) != n_got:
+            fail(f"{what}: summed MeshTickStats.n_matches {sum(stat_m)} != "
+                 f"{n_got} reported")
+        clock = max(int(b.engines.t_now.max()) for g in svc._iter_groups()
+                    for b in g.blocks())
+        stats = svc.last_mesh_stats()
+        if max(s["t_clock"] for s in stats.values()) != clock:
+            fail(f"{what}: t_clock {stats} != the engines' largest t_now "
+                 f"{clock}")
+        if not launches or set(by_slots) != {spr}:
+            fail(f"{what}: pair launches {launches} by slot count "
+                 f"{by_slots}: need S = {spr} only")
+        n_leaves = _mesh_tables_equal(torch, single, svc) if n_rep == 1 \
+            else None
+        lat = [i.latency_ms for i in infos]
+        runs.append({
+            "n_replicas": n_rep, "slots_per_replica": spr,
+            "edges_per_s": len(stream) / wall, "wall_s": wall,
+            "ticks": len(infos), "tick_ms_p50": _pctl(lat, 0.5),
+            "tick_ms_p99": _pctl(lat, 0.99), "tick_ms_first": lat[0],
+            "tick_ms_p99_after_first": _pctl(lat[1:], 0.99),
+            "matches_total": n_got, "n_overflow": overflow,
+            "stats_n_matches": sum(stat_m), "t_clock": clock,
+            "groups": len(svc._iter_groups()), "n_compiles": svc.n_compiles,
+            "compat_join_launches": launches,
+            "compat_join_launches_by_slots": {
+                str(k): v for k, v in sorted(by_slots.items())},
+            "r1_table_leaves_equal": n_leaves})
+        by_replicas[str(n_rep)] = launches
+        by_slots_all.update(by_slots)
+        if (n_rep, spr) == (2, 4):
+            cuda24 = (qids, upto, snap)
+        del svc, got
+    del single
+    _free(torch)
+
+    # -- REF parity at (2, 4) over the parity ticks, tables included ------
+    qids, upto, snap = cuda24
+    ref, rq, rinfos, rgot, _, _, rsnap, rwall = run_mesh(
+        "ref", stream, 2, 4, snapshot_tick=args.parity_ticks,
+        n_ticks=args.parity_ticks)
+    if rq != qids:
+        fail("mesh REF: other qids")
+    n_ref_leaves = 0
+    for q in qids:
+        if rgot[q] != upto[q]:
+            fail(f"mesh REF: qid {q}: match multisets differ from CUDA's "
+                 "over the parity ticks")
+        for x, y in zip(_flat(rsnap[q]), _flat(snap[q])):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                fail(f"mesh REF: qid {q}: a table leaf differs from CUDA's")
+            n_ref_leaves += 1
+    del ref, snap, rsnap
+    _free(torch)
+
+    # -- a mesh session with sharing: crash, restore, reshard --------------
+    patterns = session_patterns(stream)
+    n_ticks = len(stream) // BATCH
+    crash = min(SESSION_CRASH_TICK, n_ticks - 1)
+    devices = (DEVICE,) * MESH_SESSION["n_replicas"]
+    tc = SlotTickCache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+
+    def mesh_session(ckpt_dir=None, cache=tc):
+        return StreamSession(
+            mesh=MESH_SESSION, level_capacity=LEVEL_CAP,
+            l0_capacity=LEVEL_CAP, max_new=MAX_NEW, ckpt_dir=ckpt_dir,
+            tick_cache=cache, share_prefixes=True, devices=devices)
+
+    sess_a = mesh_session()
+    rep_a = _Reports(sess_a)
+    ops.compat_join_pairs.launches = 0           # counts of the session path
+    ops.compat_join_pairs.launches_by_slots.clear()
+    wall_a = _serve_session(sess_a, patterns, stream, rep_a)
+    sess_launches = ops.compat_join_pairs.launches
+    sess_by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+    svc_a = sess_a.service
+    if not isinstance(svc_a, ShardedSearchService):
+        fail("mesh session: StreamSession(mesh=) is not a sharded service")
+    reports_a = rep_a.multiset()
+    if svc_a.overflow_pressure() or not reports_a:
+        fail(f"mesh session: overflow {svc_a.overflow_pressure()}, "
+             f"{sum(reports_a.values())} matches")
+    if not sess_by_slots.get(1) or not sess_by_slots.get(
+            MESH_SESSION["slots_per_replica"]):
+        fail(f"mesh session: pair launches by slot count {sess_by_slots}")
+    fs = svc_a.forest_stats()
+    del sess_a, svc_a
+    _free(torch)
+
+    dir_d = os.path.join(tmp, "d")
+    sess_d = mesh_session(dir_d)
+    rep_d = _Reports(sess_d)
+    _serve_session(sess_d, patterns, stream[:crash * BATCH], rep_d,
+                   ckpt_every=SESSION_CKPT_EVERY, final_checkpoint=False)
+    sess_d.close()
+    del sess_d                                   # the crash
+    _free(torch)
+    want_step = (crash // SESSION_CKPT_EVERY) * SESSION_CKPT_EVERY
+    n_rep = MESH_SESSION["n_replicas"]
+    files = sorted(f for f in os.listdir(dir_d)
+                   if f.startswith(f"step_{want_step}."))
+    if files != [f"step_{want_step}.json"] + [
+            f"step_{want_step}.shard{r}of{n_rep}.npz" for r in range(n_rep)]:
+        fail(f"mesh session: step {want_step} is {files}, not {n_rep} "
+             "shard files and one manifest")
+    restored = {}
+    for name in ("same", "reshard"):
+        builds = tc.n_builds
+        _sync(torch)
+        t0 = time.perf_counter()
+        if name == "same":
+            sess_r = StreamSession.restore(dir_d, tick_cache=tc,
+                                           devices=devices)
+        else:
+            sess_r = StreamSession.adopt(ShardedSearchService.restore(
+                dir_d, tick_cache=tc, extract_matches=True,
+                n_replicas=MESH_RESHARD, devices=(DEVICE,) * MESH_RESHARD))
+        _sync(torch)
+        secs = time.perf_counter() - t0
+        svc_r = sess_r.service
+        want_r = n_rep if name == "same" else MESH_RESHARD
+        if svc_r.n_replicas != want_r or svc_r.n_ticks != want_step:
+            fail(f"mesh session: {name} restore has {svc_r.n_replicas} "
+                 f"replicas at tick {svc_r.n_ticks}")
+        if name == "same" and tc.n_builds != builds:
+            fail(f"mesh session: a same-size restore built "
+                 f"{tc.n_builds - builds} ticks")
+        parts = svc_r._manifest().get("replica_refcounts") or {}
+        if {int(p): sum(c) for p, c in parts.items()} != \
+                {n.pid: n.refcount for n in svc_r.forest.nodes()} or \
+                any(len(c) != want_r for c in parts.values()):
+            fail(f"mesh session: {name}: replica_refcounts {parts} do not "
+                 "partition the forest's refcounts")
+        rep_r = _Reports(sess_r)
+        for sub in sess_r.subscriptions():
+            sub.on_match = rep_r.on_match_for(sub.qid)
+        _serve_session(sess_r, patterns, stream[sess_r.resume_offset:],
+                       rep_r)
+        once = rep_d.multiset(upto=want_step) + rep_r.multiset()
+        if once != reports_a:
+            fail(f"mesh session: {name} restore + replay is not exactly "
+                 f"once ({sum(once.values())} vs "
+                 f"{sum(reports_a.values())})")
+        restored[name] = {"seconds": secs, "n_replicas": want_r,
+                          "step": want_step,
+                          "tick_builds": tc.n_builds - builds,
+                          "replica_refcounts": parts,
+                          "exactly_once": True}
+        del sess_r, svc_r
+        _free(torch)
+
+    out = {
+        "phase": "mesh", "tenants": len(sq), "edges": len(stream),
+        "level_capacity": LEVEL_CAP, "max_new": MAX_NEW, "batch": BATCH,
+        "device": DEVICE, "single_device_matches": total, "runs": runs,
+        "compat_join_launches_by_replicas": by_replicas,
+        "ref_parity": {"n_replicas": 2, "slots_per_replica": 4,
+                       "ticks": len(rinfos), "state_leaves_equal":
+                       n_ref_leaves, "ref_wall_s": rwall, "identical": True},
+        "session": {
+            "mesh": MESH_SESSION, "tenants": len(patterns),
+            "timing": _timing(True, len(stream), wall_a, rep_a.infos),
+            "matches_total": sum(reports_a.values()),
+            "forest_stats": fs._asdict(),
+            "compat_join_launches": sess_launches,
+            "compat_join_launches_by_slots": {
+                str(k): v for k, v in sorted(sess_by_slots.items())},
+            "checkpoint_files": files, "crash_after_tick": crash,
+            "restore": restored},
+    }
+    emit(out)
+    by_slots_all.update(sess_by_slots)
+    return out, sum(by_replicas.values()) + sess_launches, by_slots_all, \
+        by_replicas
+
+
+# --------------------------------------------------------------------- #
 # substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
 # --------------------------------------------------------------------- #
 def _pctl(xs, q: float) -> float:
@@ -2177,6 +2501,9 @@ def main(argv=None) -> int:
     _free(torch)
     _, frontier_launches, frontier_by_slots = phase_frontier(torch, args,
                                                              stream)
+    _free(torch)
+    _, mesh_launches, mesh_by_slots, mesh_by_replicas = phase_mesh(
+        torch, args, stream)
     del stream
     _free(torch)
     bags = phase_embedding_bag(torch, args.seed)
@@ -2208,6 +2535,10 @@ def main(argv=None) -> int:
               launches_frontier=frontier_launches,
               launches_frontier_by_slots={
                   str(k): v for k, v in sorted(frontier_by_slots.items())},
+              launches_mesh=mesh_launches,
+              launches_mesh_by_slots={
+                  str(k): v for k, v in sorted(mesh_by_slots.items())},
+              launches_mesh_by_replicas=mesh_by_replicas,
               tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",

@@ -37,8 +37,11 @@ one thing that cannot persist; re-attach them on the restored handles.
 
 The port of ``repro.api.session``.  A session runs on the card
 (``device=None`` means CUDA) unless the caller passes ``device="cpu"``.
-``mesh=`` (the replica-sharded service) raises ``NotImplementedError``
-until the mesh slice of the port.  ``serve_frontier`` takes one
+``mesh=`` (an int replica count, or a dict of ``ShardedSearchService``
+knobs) serves through the replica-sharded service
+(``repro_torch.runtime.mesh``); its replicas sit on ``devices=`` (one
+device per replica, repeats allowed), or all on ``device`` when that is
+given, or on every visible CUDA device.  ``serve_frontier`` takes one
 keyword the reference's session does not pass through: ``pump_size``,
 the service's deliveries per source per round (the reference's session
 always uses the service's default of 64), so that a session can fill a
@@ -259,12 +262,9 @@ class StreamSession:
         tracer=None,
         *,
         device=None,
+        devices=None,
         _service: ContinuousSearchService | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (replica-sharded serving) is the mesh slice of the "
-                "port; serve without it")
         if _service is None:
             common = dict(
                 level_capacity=level_capacity,
@@ -279,8 +279,23 @@ class StreamSession:
                 enable_sharing=share_prefixes,
                 device=device,
             )
-            _service = ContinuousSearchService(
-                slots_per_group=slots_per_group, **common)
+            if mesh is not None:
+                # replica-sharded serving: ``mesh`` is the replica count
+                # or a dict of ShardedSearchService knobs (n_replicas,
+                # slots_per_replica, placement); the slot-group width is
+                # then n_replicas * slots_per_replica, so
+                # ``slots_per_group`` is ignored on this path
+                from repro_torch.runtime.mesh import ShardedSearchService
+                mesh_kw = ({"n_replicas": mesh} if isinstance(mesh, int)
+                           else dict(mesh))
+                _service = ShardedSearchService(**mesh_kw, devices=devices,
+                                                **common)
+            else:
+                if devices is not None:
+                    raise ValueError("devices= places the replicas of a "
+                                     "mesh session; pass mesh= too")
+                _service = ContinuousSearchService(
+                    slots_per_group=slots_per_group, **common)
         self.service = _service
         # the session ALWAYS carries a metrics registry: status()/health
         # read the registry's ``ingest.*`` counters instead of a live
@@ -611,7 +626,7 @@ class StreamSession:
     def restore(cls, ckpt_dir: str, step: int | None = None,
                 tick_cache=None, backend: str | None = None,
                 obs: MetricsRegistry | None = None, *,
-                device=None) -> "StreamSession":
+                device=None, devices=None) -> "StreamSession":
         """Rebuild a full session from the newest usable checkpoint:
         original qids, same label vocabulary, same pattern plans, zero
         recompiles for structures this process has already served.
@@ -619,13 +634,21 @@ class StreamSession:
         ``Subscription`` handles.  The obs registry's counter history
         (drops, ticks, checkpoint latencies) reloads from the manifest,
         so ``status()`` health attribution survives the restore.  The
-        state lands on ``device`` (``None``: the card).
+        state lands on ``device`` (``None``: the card).  A checkpoint of
+        a mesh session comes back as a mesh session on the same number
+        of replicas, placed on ``devices`` (or all on ``device``).
         """
-        svc = ContinuousSearchService.restore(
-            ckpt_dir, step=step, tick_cache=tick_cache, backend=backend,
-            extract_matches=True,
-            obs=obs if obs is not None else MetricsRegistry(),
-            device=device)
+        obs = obs if obs is not None else MetricsRegistry()
+        if devices is not None:
+            from repro_torch.runtime.mesh import ShardedSearchService
+            svc = ShardedSearchService.restore(
+                ckpt_dir, step=step, tick_cache=tick_cache, backend=backend,
+                extract_matches=True, obs=obs, devices=devices,
+                device=device)
+        else:
+            svc = ContinuousSearchService.restore(
+                ckpt_dir, step=step, tick_cache=tick_cache, backend=backend,
+                extract_matches=True, obs=obs, device=device)
         extra = svc.manifest_extra if isinstance(svc.manifest_extra, dict) \
             else {}
         if extra.get("api") is None:

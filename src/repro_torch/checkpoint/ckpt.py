@@ -21,13 +21,22 @@ or partial checkpoint is skipped by ``latest_step`` and surfaces from
 ``restore_checkpoint``/``load_manifest`` as ``CheckpointError`` so
 recovery paths fall back to the previous step.
 
+Sharded checkpoints (``n_shards > 1``, the replica-sharded service of
+``repro_torch.runtime.mesh``) split every non-replicated key along axis
+0 into ``step_<N>.shard<r>of<R>.npz`` files, one per replica, with
+replicated keys and scalars stored once in shard 0; shard 0 is published
+last and is the commit point, and the manifest carries every shard's
+sha256.  ``restore_checkpoint`` reassembles the shards on the host, so
+the result does not depend on the mesh that wrote it.
+
 The async writer copies every tensor to host memory synchronously before
 ``save`` returns (the service's slot tables are updated in place by the
 next tick, so the snapshot must not alias them), then writes the file on
 a background thread.
 
-Sharded (per-replica) checkpoints and ``reshard`` belong to the mesh
-slice of the port and raise ``NotImplementedError``.
+Placing a restored tree onto a capacity-sharded layout
+(``restore_checkpoint(mesh=, specs=)`` and ``reshard``) belongs to the
+capacity-sharding slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,8 +60,8 @@ SEP = "::"
 # process (a delta manifest chain that could not be replayed).
 N_DELTA_FALLBACKS = 0
 
-_MESH = ("sharded checkpoints (n_shards > 1) and reshard belong to the "
-         "mesh slice of the port")
+_MESH = ("placing a checkpoint onto a capacity-sharded layout (mesh=/specs=, "
+         "reshard) belongs to the capacity-sharding slice of the port")
 
 
 class CheckpointError(RuntimeError):
@@ -118,6 +127,10 @@ def _paths(ckpt_dir: str, step: int) -> tuple[str, str]:
             os.path.join(ckpt_dir, f"step_{step}.json"))
 
 
+def _shard_path(ckpt_dir: str, step: int, r: int, n: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step}.shard{r}of{n}.npz")
+
+
 def _sha256(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -173,25 +186,59 @@ def _write_npz_hashed(tmp_path: str, flat: dict) -> str:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
                     n_shards: int = 1, replicated: tuple = ()):
-    """Publish checkpoint ``step`` atomically; returns the npz path."""
-    if n_shards > 1:
-        raise NotImplementedError(_MESH)
+    """Publish checkpoint ``step`` atomically; returns the npz path (shard
+    0's with ``n_shards > 1``).
+
+    With ``n_shards > 1`` every key whose top-level name is not in
+    ``replicated`` is split into ``n_shards`` contiguous axis-0 blocks,
+    one per ``step_N.shard<r>of<R>.npz``; replicated keys and scalars
+    are stored once, in shard 0, which is published last.
+    """
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     out, man_out = _paths(ckpt_dir, step)
     man_tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.json")
-    tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.npz")
-    digest = _write_npz_hashed(tmp, flat)
-    # the hash ties the manifest/npz PAIR together: a crash between the
-    # two replaces of an overwritten step leaves a new manifest with an
-    # old npz, which validate_checkpoint then rejects as torn
+    if n_shards <= 1:
+        tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.npz")
+        digest = _write_npz_hashed(tmp, flat)
+        # the hash ties the manifest/npz PAIR together: a crash between
+        # the two replaces of an overwritten step leaves a new manifest
+        # with an old npz, which validate_checkpoint then rejects as torn
+        manifest = {"step": step, "n_arrays": len(flat),
+                    "npz_sha256": digest, **(extra or {})}
+        with open(man_tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(man_tmp, man_out)       # manifest published first ...
+        os.replace(tmp, out)               # ... npz last: the commit point
+        return out
+
+    repl = set(replicated)
+    shard_flats: list[dict] = [{} for _ in range(n_shards)]
+    for key, arr in flat.items():
+        if key.split(SEP, 1)[0] in repl or arr.ndim == 0:
+            shard_flats[0][key] = arr
+            continue
+        if arr.shape[0] % n_shards:
+            raise ValueError(
+                f"cannot shard {key!r}: axis-0 size {arr.shape[0]} not "
+                f"divisible by n_shards={n_shards}")
+        block = arr.shape[0] // n_shards
+        for r in range(n_shards):
+            shard_flats[r][key] = arr[r * block:(r + 1) * block]
+    tmps, digests = [], []
+    for r in range(n_shards):
+        tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.shard{r}.npz")
+        digests.append(_write_npz_hashed(tmp, shard_flats[r]))
+        tmps.append(tmp)
     manifest = {"step": step, "n_arrays": len(flat),
-                "npz_sha256": digest, **(extra or {})}
+                "shards": {"n": n_shards, "sha256": digests},
+                **(extra or {})}
     with open(man_tmp, "w") as f:
         json.dump(manifest, f)
-    os.replace(man_tmp, man_out)       # manifest published first ...
-    os.replace(tmp, out)               # ... npz last: the commit point
-    return out
+    os.replace(man_tmp, man_out)           # manifest first ...
+    for r in range(n_shards - 1, -1, -1):  # ... shard 0 last: commit point
+        os.replace(tmps[r], _shard_path(ckpt_dir, step, r, n_shards))
+    return _shard_path(ckpt_dir, step, 0, n_shards)
 
 
 def _delta_prev(manifest: dict) -> int | None:
@@ -225,10 +272,11 @@ def prune_checkpoints(ckpt_dir: str, keep_last: int) -> list[int]:
                 break
     for step in pruned:
         npz, _ = _paths(ckpt_dir, step)
-        try:
-            os.remove(npz)
-        except OSError:
-            pass
+        for path in [npz] + _shard_files(ckpt_dir, step):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
     # every manifest not referenced by a kept step's chain goes,
     # including ones orphaned by earlier prunes
     keep_man = needed | set(kept)
@@ -242,10 +290,18 @@ def prune_checkpoints(ckpt_dir: str, keep_last: int) -> list[int]:
     return pruned
 
 
+def _shard_files(ckpt_dir: str, step: int) -> list[str]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    pat = re.compile(rf"step_{step}\.shard\d+of\d+\.npz")
+    return [os.path.join(ckpt_dir, f) for f in os.listdir(ckpt_dir)
+            if pat.fullmatch(f)]
+
+
 def checkpoint_steps(ckpt_dir: str) -> list[int]:
     """All steps with published arrays, ascending (not validated).  A
-    sharded step (written by the reference's mesh service) is listed
-    once its shard-0 file is visible."""
+    sharded step is listed once its shard-0 file, the commit point, is
+    visible."""
     if not os.path.isdir(ckpt_dir):
         return []
     return sorted({int(m.group(1)) for f in os.listdir(ckpt_dir)
@@ -256,8 +312,9 @@ def checkpoint_steps(ckpt_dir: str) -> list[int]:
 def validate_checkpoint(ckpt_dir: str, step: int) -> None:
     """Raise ``CheckpointError`` if checkpoint ``step`` is torn/partial.
 
-    The JSON manifest must exist and parse, and the ``.npz`` must be
-    byte-identical to what ``save_checkpoint`` wrote (``npz_sha256``); a
+    The JSON manifest must exist and parse, and the ``.npz`` (or every
+    shard of a sharded step) must be byte-identical to what
+    ``save_checkpoint`` wrote (``npz_sha256``, ``shards.sha256``); a
     manifest without a hash (foreign writer) falls back to a zip CRC
     scan.
     """
@@ -267,8 +324,21 @@ def validate_checkpoint(ckpt_dir: str, step: int) -> None:
             manifest = json.load(f)
     except (OSError, json.JSONDecodeError) as e:
         raise CheckpointError(f"step {step}: bad manifest {man}: {e}") from e
-    if manifest.get("shards") is not None:
-        raise NotImplementedError(_MESH)
+    shards = manifest.get("shards")
+    if shards is not None:
+        n = int(shards["n"])
+        for r, want in enumerate(shards["sha256"]):
+            path = _shard_path(ckpt_dir, step, r, n)
+            try:
+                got = _sha256(path)
+            except OSError as e:
+                raise CheckpointError(
+                    f"step {step}: missing shard {path}: {e}") from e
+            if got != want:
+                raise CheckpointError(
+                    f"step {step}: shard {r}/{n} does not match its "
+                    "manifest hash (torn write?)")
+        return
     want = manifest.get("npz_sha256")
     try:
         if want is not None:
@@ -395,6 +465,31 @@ def load_resolved_manifest(ckpt_dir: str, step: int, key: str) -> dict:
     return base
 
 
+def _load_sharded(ckpt_dir: str, step: int) -> dict:
+    """Reassemble a sharded checkpoint's arrays into one flat dict: keys
+    present in every shard concatenate along axis 0 in shard order,
+    shard-0-only keys are replicated values."""
+    files = _shard_files(ckpt_dir, step)
+    m = re.search(r"shard\d+of(\d+)\.npz", os.path.basename(files[0]))
+    n = int(m.group(1))
+    ds = []
+    for r in range(n):
+        path = _shard_path(ckpt_dir, step, r, n)
+        try:
+            ds.append(np.load(path))
+        except (OSError, zipfile.BadZipFile, ValueError, EOFError) as e:
+            raise CheckpointError(
+                f"step {step}: unreadable shard {path}: {e}") from e
+    out: dict = {}
+    shard_keys = set(ds[1].files) if n > 1 else set()
+    for key in ds[0].files:
+        if key in shard_keys:
+            out[key] = np.concatenate([d[key] for d in ds], axis=0)
+        else:
+            out[key] = ds[0][key]           # replicated: stored once
+    return out
+
+
 def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
                        mesh=None, specs=None):
     """Restore into the structure of ``like_tree``.
@@ -404,7 +499,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
     file raises ``CheckpointError`` (callers fall back to an older step);
     a missing array or a shape mismatch raises ``ValueError``: the npz
     publishes atomically, so either means the caller's state schema
-    drifted — a configuration error that must be loud.
+    drifted — a configuration error that must be loud.  A sharded step
+    is reassembled on the host (``_load_sharded``), whatever the number
+    of replicas that wrote it.
     """
     if mesh is not None or specs is not None:
         raise NotImplementedError(_MESH)
@@ -412,7 +509,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
     try:
         data = np.load(npz)
     except (OSError, zipfile.BadZipFile, ValueError, EOFError) as e:
-        raise CheckpointError(f"step {step}: unreadable {npz}: {e}") from e
+        if not _shard_files(ckpt_dir, step):
+            raise CheckpointError(
+                f"step {step}: unreadable {npz}: {e}") from e
+        data = _load_sharded(ckpt_dir, step)
 
     def leaf(key, like):
         try:
@@ -460,14 +560,15 @@ class AsyncCheckpointer:
              replicated: tuple = ()):
         """Snapshot ``tree`` to host memory now, write it on the writer
         thread.  With ``keep_last``, older checkpoints are pruned on the
-        writer thread after the new step publishes."""
-        if n_shards > 1:
-            raise NotImplementedError(_MESH)
+        writer thread after the new step publishes.  ``n_shards`` /
+        ``replicated`` pass through to ``save_checkpoint`` (per-replica
+        shard files for the mesh service)."""
         host = _flatten(tree)              # synchronous owned snapshot
 
         def _write():
             t0 = time.perf_counter()
-            out = save_checkpoint(self.ckpt_dir, step, host, extra)
+            out = save_checkpoint(self.ckpt_dir, step, host, extra,
+                                  n_shards=n_shards, replicated=replicated)
             if keep_last is not None:
                 prune_checkpoints(self.ckpt_dir, keep_last)
             self.last_write_s = time.perf_counter() - t0

@@ -33,8 +33,10 @@ a slot axis; the joins take it as a shared operand (slot stride 0 in the
 CUDA kernel) and the gathers index it directly, so it is never copied
 per slot.
 
-Left out (the mesh slice; it raises ``NotImplementedError``): capacity
-sharding (``axis_name``/``n_shards``).
+Left out (a later slice; it raises ``NotImplementedError``): capacity
+sharding (``axis_name``/``n_shards``).  Replica sharding of the slot axis
+needs nothing here: ``repro_torch.runtime.mesh`` runs this body over
+each replica's slot block.
 """
 
 from __future__ import annotations
@@ -229,8 +231,8 @@ def build_tick_body(
     """
     if axis_name is not None or n_shards != 1:
         raise NotImplementedError(
-            "capacity sharding (axis_name / n_shards) is the mesh slice "
-            "of the port")
+            "capacity sharding (axis_name / n_shards) is a later slice of "
+            "the port")
     if prefix_depth:
         if not (0 < prefix_depth <= len(plan.subqueries[0].levels)):
             raise ValueError(

@@ -471,6 +471,26 @@ class SharedPrefixForest:
             node = node.parent
         return total
 
+    def replica_refcounts(self, assignments, n_replicas: int) -> dict:
+        """Per-replica partition of the forest's refcounts.
+
+        Under mesh serving (``repro_torch.runtime.mesh``) node tables are
+        replicated — every replica's joins read the same view — but each
+        aliasing tenant lives on exactly one replica, so every node's
+        refcount partitions by placement.  ``assignments`` is an
+        iterable of ``(leaf, replica)`` pairs, one per live tenant;
+        returns ``{pid: [count per replica]}`` with ``sum(counts) ==
+        node.refcount`` (the mesh checkpoint manifest records it and
+        restore verifies it)."""
+        out: dict[int, list[int]] = {}
+        for leaf, r in assignments:
+            node = leaf
+            while node is not None:
+                counts = out.setdefault(node.pid, [0] * n_replicas)
+                counts[r] += 1
+                node = node.parent
+        return out
+
     def chain_overflow(self, leaf: PrefixNode) -> int:
         """Cumulative dropped appends along one tenant's chain (host
         reads: status time, not the tick)."""

@@ -14,8 +14,8 @@ reconnects (``repro_torch.stream.ingest``) consume the same policy.
 Delays are deterministic given an ``rng`` (jitter draws from it), and
 ``sleep`` is injectable, so tests can pin schedules.
 
-``mesh``/``specs`` (a sharded restore) raise ``NotImplementedError``
-until the mesh slice of the port.
+``mesh``/``specs`` (a restore onto a capacity-sharded layout) raise
+``NotImplementedError`` until the capacity-sharding slice of the port.
 """
 
 from __future__ import annotations
@@ -95,8 +95,8 @@ class FaultTolerantLoop:
     ):
         if mesh is not None or specs is not None:
             raise NotImplementedError(
-                "a sharded restore (mesh=/specs=) belongs to the mesh "
-                "slice of the port")
+                "a sharded restore (mesh=/specs=) belongs to the "
+                "capacity-sharding slice of the port")
         self.ckpt_dir = ckpt_dir
         self.step_fn = step_fn
         self.make_init_state = make_init_state

@@ -66,7 +66,11 @@ constructor's positional parameters are the reference's up to
 ``max_out``; the reference's next two, ``jit`` and ``donate``, have no
 meaning here, so every parameter after ``max_out`` is keyword-only (a
 positional call in the reference's order fails loudly instead of
-shifting).  The mesh (replica-sharded) service is a later slice.
+shifting).  ``repro_torch.runtime.mesh.ShardedSearchService`` splits the
+slot axis over replicas through the hooks here (``_place``,
+``_Group.slot``, ``_group_tree``/``_set_group_state``,
+``_trace_tick_extras``, ``_ckpt_save_kwargs``), and ``restore`` hands a
+checkpoint whose config names a ``mesh`` to it.
 """
 
 from __future__ import annotations
@@ -122,6 +126,22 @@ from repro_torch.runtime.straggler import TickCoalescer, quantize_pow2
 from repro_torch.stream.generator import to_batches
 
 
+def _restore_config(man: dict, overrides: dict, step: int) -> dict:
+    """The checkpointed constructor config, without the reference's
+    execution knobs (``jit``/``donate``: the port has neither); a join
+    backend the port does not have needs an explicit override."""
+    config = dict(man["config"])
+    config.pop("jit", None)
+    config.pop("donate", None)
+    if "backend" not in overrides \
+            and config.get("backend") not in J.JoinBackend.ALL:
+        raise ValueError(
+            f"checkpoint step {step} was served with join backend "
+            f"{config.get('backend')!r}, which the port does not have; "
+            f"pass backend= one of {J.JoinBackend.ALL} to restore it")
+    return config
+
+
 class ServeInfo(NamedTuple):
     """Per-tick record passed to ``serve_stream``'s ``on_tick`` callback
     (after the state update and any checkpoint)."""
@@ -155,12 +175,28 @@ class _Group:
     empty: EngineState                # cached init_state(template) for churn
     qids: list = field(default_factory=list)   # qid | None per slot
     prefix: object = None             # share.PrefixNode leaf | None
+    # mesh service: ``sstate`` is a tuple of per-replica SlotStates, each
+    # ``spr`` slots high (None: one SlotState holds every slot)
+    spr: int | None = None
 
-    def free_slot(self) -> int | None:
-        for k, q in enumerate(self.qids):
-            if q is None:
+    def free_slot(self, lo: int = 0, hi: int | None = None) -> int | None:
+        """First free slot in ``[lo, hi)`` (mesh placement restricts the
+        search to one replica's contiguous slot block)."""
+        hi = len(self.qids) if hi is None else hi
+        for k in range(lo, hi):
+            if self.qids[k] is None:
                 return k
         return None
+
+    def slot(self, k: int) -> tuple[SlotState, int]:
+        """The SlotState holding slot ``k``, and k's row in it."""
+        if self.spr is None:
+            return self.sstate, k
+        return self.sstate[k // self.spr], k % self.spr
+
+    def blocks(self) -> tuple:
+        """Every SlotState of the group (one per replica on a mesh)."""
+        return (self.sstate,) if self.spr is None else tuple(self.sstate)
 
     @property
     def idle(self) -> bool:
@@ -278,10 +314,12 @@ class ContinuousSearchService:
         self._next_gid += 1
         return g
 
-    def _place(self, groups: list, plan: ExecutionPlan,
-               leaf) -> tuple[_Group, int]:
+    def _place(self, groups: list, plan: ExecutionPlan, leaf,
+               signature) -> tuple[_Group, int]:
         """Pick ``(group, slot)`` for a new tenant of this group key,
-        allocating a fresh group when none has a free slot."""
+        allocating a fresh group when none has a free slot.  The single
+        placement hook: the mesh service routes the choice through a
+        replica ``PlacementPolicy`` and searches that replica's block."""
         for g in groups:
             k = g.free_slot()
             if k is not None:
@@ -313,8 +351,9 @@ class ContinuousSearchService:
                 self._prefix_of[qid] = leaf
             gkey = (rq.signature, None if leaf is None else leaf.pid)
             groups = self._groups.setdefault(gkey, [])
-            group, k = self._place(groups, rq.plan, leaf)
-            write_slot(group.sstate, group.template, k, rq.plan,
+            group, k = self._place(groups, rq.plan, leaf, rq.signature)
+            block, row = group.slot(k)
+            write_slot(block, group.template, row, rq.plan,
                        empty=group.empty)
         except Exception:
             # no half-registered tenant: roll the qid, any acquired
@@ -340,7 +379,8 @@ class ContinuousSearchService:
         groups too.
         """
         group, k = self._location.pop(qid)
-        clear_slot(group.sstate, group.template, k, empty=group.empty)
+        block, row = group.slot(k)
+        clear_slot(block, group.template, row, empty=group.empty)
         group.qids[k] = None
         self.registry.unregister(qid)
         leaf = self._prefix_of.pop(qid, None)
@@ -367,8 +407,8 @@ class ContinuousSearchService:
         else:
             groups = self._iter_groups()
         live = [g for g in groups if not g.idle]
-        total = sum(int(g.sstate.engines.stats.n_overflow.sum())
-                    for g in live)
+        total = sum(int(b.engines.stats.n_overflow.sum())
+                    for g in live for b in g.blocks())
         if self.forest is not None:
             seen = set()
             for g in live:
@@ -554,6 +594,7 @@ class ContinuousSearchService:
         lat_ms = (t_end - t0) * 1e3
         if tr is not None:
             tr.record("tick.barrier", (t_end - tb) * 1e3)
+            self._trace_tick_extras(tr)
         tick_overflow = 0
         n_matches = 0
         for g, res in results:
@@ -585,6 +626,11 @@ class ContinuousSearchService:
             if views:
                 obs.counter("share.n_prefix_ticks").inc(len(views))
         return lat_ms, tick_overflow, len(views)
+
+    def _trace_tick_extras(self, tr: Tracer) -> None:
+        """Tracer-on hook after the tick barrier — the mesh service
+        emits its cross-replica scalars here; the base service has
+        none."""
 
     def _observe_coalescer(self, coalescer: TickCoalescer) -> None:
         """Mirror the AIMD decision just taken into ``coalescer.*`` (obs-on
@@ -802,12 +848,26 @@ class ContinuousSearchService:
             "obs": (None if self.obs is None else self.obs.to_manifest()),
         }
 
+    def _group_tree(self, g: _Group):
+        """One group's state as the checkpoint holds it: a SlotState
+        whose leaves carry the whole slot axis."""
+        return g.sstate
+
+    def _set_group_state(self, g: _Group, sstate) -> None:
+        """Install a restored whole-slot-axis SlotState into ``g``."""
+        g.sstate = sstate
+
     def _ckpt_tree(self) -> dict:
-        tree = {str(g.gid): g.sstate for g in self._iter_groups()}
+        tree = {str(g.gid): self._group_tree(g) for g in self._iter_groups()}
         if self.forest is not None:
             tree.update({f"prefix{n.pid}": n.state
                          for n in self.forest.nodes()})
         return tree
+
+    def _ckpt_save_kwargs(self) -> dict:
+        """Extra ``AsyncCheckpointer.save`` kwargs — the mesh service
+        splits its slot axis into per-replica shard files."""
+        return {}
 
     def checkpoint(self, step: int | None = None):
         """Snapshot all groups' ``SlotState`` and the forest's node
@@ -842,7 +902,8 @@ class ContinuousSearchService:
         self._last_manifest = man
         self._last_man_step = step
         fut = self.ckpt.save(step, self._ckpt_tree(), extra=extra,
-                             keep_last=self.keep_checkpoints)
+                             keep_last=self.keep_checkpoints,
+                             **self._ckpt_save_kwargs())
         if self.obs is not None or self.tracer is not None:
             # the synchronous publish cost: manifest + host snapshot
             ms = (time.perf_counter() - t0) * 1e3
@@ -879,7 +940,10 @@ class ContinuousSearchService:
         ``backend`` / ``extract_matches`` override the checkpointed
         config.  A checkpoint written by the reference package names a
         backend the port does not have (``"pallas"``...): it restores
-        only with an explicit ``backend=``.
+        only with an explicit ``backend=``.  A checkpoint written by a
+        ``ShardedSearchService`` (its config names a ``mesh``) comes back
+        as one, on the same number of replicas, every replica on
+        ``device`` when it is given.
         """
         candidates = ([step] if step is not None
                       else list(reversed(checkpoint_steps(ckpt_dir))))
@@ -908,20 +972,13 @@ class ContinuousSearchService:
         # resolves service_delta chains back to the last full manifest;
         # a torn link raises CheckpointError (fall back a step)
         man = load_resolved_manifest(ckpt_dir, step, "service")
-        config = dict(man["config"])
-        if "mesh" in config:
-            raise NotImplementedError(
-                "checkpoint written by a replica-sharded (mesh) service: "
-                "the mesh slice of the port restores it")
-        # the reference's execution knobs; the port has neither
-        config.pop("jit", None)
-        config.pop("donate", None)
-        if "backend" not in overrides \
-                and config.get("backend") not in J.JoinBackend.ALL:
-            raise ValueError(
-                f"checkpoint step {step} was served with join backend "
-                f"{config.get('backend')!r}, which the port does not have; "
-                f"pass backend= one of {J.JoinBackend.ALL} to restore it")
+        config = _restore_config(man, overrides, step)
+        if "mesh" in config and not getattr(cls, "_MESH_SERVICE", False):
+            # written by a ShardedSearchService, restored through the
+            # base class: delegate
+            from repro_torch.runtime.mesh import ShardedSearchService
+            return ShardedSearchService._restore_step(
+                ckpt_dir, step, tick_cache, overrides, device)
         svc = cls(ckpt_dir=ckpt_dir, tick_cache=tick_cache, device=device,
                   **{**config, **overrides})
         svc.manifest_extra = man.get("extra", {})
@@ -956,7 +1013,7 @@ class ContinuousSearchService:
                         # one chain of references per restored tenant —
                         # refcounts are rebuilt, not trusted blindly
                         svc._prefix_of[qid] = svc.forest.adopt(leaf)
-            like[str(g.gid)] = g.sstate
+            like[str(g.gid)] = svc._group_tree(g)
         if svc.forest is not None and man.get("forest"):
             want = {int(e["pid"]): int(e["refcount"])
                     for e in man["forest"]["nodes"]}
@@ -971,7 +1028,7 @@ class ContinuousSearchService:
             (int(gid) for gid in man["groups"]), default=-1)
         restored = restore_checkpoint(ckpt_dir, step, like)
         for g in svc._iter_groups():
-            g.sstate = restored[str(g.gid)]
+            svc._set_group_state(g, restored[str(g.gid)])
         if svc.forest is not None:
             for n in svc.forest.nodes():
                 n.state = restored[f"prefix{n.pid}"]
@@ -990,7 +1047,7 @@ class ContinuousSearchService:
         """This query's (unstacked) engine state (under prefix sharing:
         the suffix levels only — the shared prefix lives in the forest)."""
         group, k = self._location[qid]
-        return read_slot(group.sstate, k)
+        return read_slot(*group.slot(k))
 
     def matches(self, qid: int):
         """All complete matches currently in the query's window."""

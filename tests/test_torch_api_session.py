@@ -1,7 +1,7 @@
 """The port's public ``repro_torch.api`` surface against the JAX package.
 
-The scenarios of tests/test_api_session.py (the mesh one aside: the
-port's ``StreamSession(mesh=...)`` raises ``NotImplementedError``), each
+The scenarios of tests/test_api_session.py (the mesh one is in
+tests/test_torch_mesh.py, held to a plain JAX session), each
 run on a port session (CPU, REF joins) and a reference session over the
 same events: delivered ``Match`` multisets equal the reference's and the
 oracle's, isomorphic authorings share one group and build, overflow
@@ -224,10 +224,18 @@ def test_session_checkpoint_restore_roundtrip(tmp_path, share):
 
 
 def test_mesh_is_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        session(mesh=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        session(mesh={"n_replicas": 1, "slots_per_replica": 4})
+    """``mesh=`` serves through the replica-sharded service (held to
+    the JAX package in tests/test_torch_mesh.py): an int is the replica
+    count, a dict the service's knobs; ``device`` places every
+    replica."""
+    from repro_torch.runtime.mesh import ShardedSearchService
+
+    s1 = session(mesh=1)
+    assert isinstance(s1.service, ShardedSearchService)
+    assert (s1.service.n_replicas, s1.service.slots_per_replica) == (1, 4)
+    s2 = session(mesh={"n_replicas": 2, "slots_per_replica": 3})
+    assert (s2.service.n_replicas, s2.service.slots_per_group) == (2, 6)
+    assert s2.service.mesh == (s2.service.device,) * 2
 
 
 def test_restore_refuses_non_session_checkpoints(tmp_path):

@@ -10,6 +10,8 @@ refuses.
   on CPU tensors, without a launch; ``backend="cuda"`` with CPU tensors
   raises, and nothing falls back.
 * ``JoinBackend.CUDA`` with CPU tensors raises; nothing falls back.
+* What a later slice ports raises ``NotImplementedError``; what this
+  slice serves (replica sharding, sharded checkpoints) runs.
 * ``chip_smoke.py`` without a card, or alone in a directory, exits
   non-zero and prints no result.
 """
@@ -65,6 +67,7 @@ MODULES = [
     "repro_torch.launch.stream_serve", "repro_torch.stream",
     "repro_torch.stream.ingest", "repro_torch.stream.chaos",
     "repro_torch.runtime", "repro_torch.runtime.fault",
+    "repro_torch.runtime.mesh",
 ]
 
 
@@ -111,11 +114,12 @@ def _plan():
     "batch_to_device", "graph_to_device", "params_from_numpy",
     "shared_service", "init_node_state", "stream_session", "stream_server",
     "service_restore", "session_frontier", "service_frontier",
-    "session_restore_ingest"])
+    "session_restore_ingest", "sharded_service", "mesh_session"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
     from repro_torch.core.share import init_node_state, node_spec
     from repro_torch.launch.stream_serve import StreamServer
+    from repro_torch.runtime.mesh import ShardedSearchService
 
     from repro_torch.core.oracle import DataEdge
     from repro_torch.stream.ingest import IngestFrontier, ListSource
@@ -143,6 +147,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         sess.serve_frontier(frontier(), ckpt_every=1)
         sess.service.ckpt.wait()
     calls = {
+        "sharded_service": lambda **kw: ShardedSearchService(**kw),
+        "mesh_session": lambda **kw: StreamSession(mesh=2, **kw),
         "session_frontier": lambda **kw: serve_session(StreamSession(**kw)),
         "service_frontier": lambda **kw: serve_service(
             ContinuousSearchService(**kw)),
@@ -225,26 +231,50 @@ def test_cuda_backend_with_cpu_tensors_raises():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """The mesh slice: capacity sharding, replica-sharded sessions,
-    sharded checkpoints and a sharded restore in ``FaultTolerantLoop``
-    raise; shared prefixes are served now, and only an out-of-range
-    depth is refused."""
-    from repro_torch.api import StreamSession
-    from repro_torch.checkpoint import save_checkpoint
+    """The capacity-sharding slice: sharding one engine's capacity axis
+    (``axis_name``/``n_shards``), placing a checkpoint onto a
+    capacity-sharded layout (``restore_checkpoint(mesh=, specs=)``,
+    ``reshard``) and a sharded restore in ``FaultTolerantLoop`` raise."""
+    from repro_torch.checkpoint import (
+        reshard,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from repro_torch.runtime.fault import FaultTolerantLoop
 
     with pytest.raises(NotImplementedError):
         engine.build_tick_body(_plan(), axis_name="data", n_shards=2)
     with pytest.raises(NotImplementedError, match="mesh"):
-        StreamSession(mesh=2, device="cpu")
+        reshard({"a": torch.ones(2)}, object(), object())
+    save_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)})
     with pytest.raises(NotImplementedError, match="mesh"):
-        save_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)}, n_shards=2)
-    engine.build_tick_body(_plan(), prefix_depth=2)
-    with pytest.raises(ValueError, match="out of range"):
-        engine.build_tick_body(_plan(), prefix_depth=3)
-    from repro_torch.runtime.fault import FaultTolerantLoop
+        restore_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)},
+                           mesh=object(), specs=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         FaultTolerantLoop(str(tmp_path / "loop"), lambda s, i: s,
                           lambda: 0, mesh=object())
+
+
+def test_shared_prefix_depth_is_range_checked():
+    engine.build_tick_body(_plan(), prefix_depth=2)
+    with pytest.raises(ValueError, match="out of range"):
+        engine.build_tick_body(_plan(), prefix_depth=3)
+
+
+def test_replica_sharding_is_served(tmp_path):
+    """The replica-sharding slice runs: a mesh session on CPU replicas
+    is a ``ShardedSearchService``, and sharded checkpoints are written
+    as per-replica files."""
+    from repro_torch.api import StreamSession
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.runtime.mesh import ShardedSearchService
+
+    sess = StreamSession(mesh=2, device="cpu")
+    assert isinstance(sess.service, ShardedSearchService)
+    assert sess.service.mesh == (torch.device("cpu"),) * 2
+    save_checkpoint(str(tmp_path), 1, {"a": torch.ones(4)}, n_shards=2)
+    assert sorted(os.listdir(tmp_path)) == [
+        "step_1.json", "step_1.shard0of2.npz", "step_1.shard1of2.npz"]
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

@@ -266,12 +266,152 @@ def test_missing_arrays_are_loud_schema_drift(tmp_path):
 
 
 def test_sharded_checkpoints_are_the_mesh_slice(tmp_path):
+    """Sharded files are written and read now; placing a restored tree
+    onto a capacity-sharded layout (``mesh=``/``specs=``, ``reshard``)
+    is the capacity-sharding slice and still raises."""
+    save_checkpoint(str(tmp_path), 1, {"a": torch.ones(4)}, n_shards=2)
+    validate_checkpoint(str(tmp_path), 1)
+    got = restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(4)})
+    assert got["a"].tolist() == [1.0] * 4
     with pytest.raises(NotImplementedError, match="mesh"):
-        save_checkpoint(str(tmp_path), 1, {"a": torch.ones(4)}, n_shards=2)
-    (tmp_path / "step_2.json").write_text(json.dumps(
-        {"step": 2, "shards": {"n": 2, "sha256": ["x", "y"]}}))
+        restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(4)},
+                           mesh=object(), specs=object())
     with pytest.raises(NotImplementedError, match="mesh"):
-        validate_checkpoint(str(tmp_path), 2)
+        ckpt_mod.reshard({"a": torch.zeros(4)}, object(), object())
+
+
+def _shard_tree():
+    """Slot-sharded leaves (leading axis 8), a replicated prefix table
+    and a scalar, as the mesh service's tree has them."""
+    return {
+        "0": {"table": torch.arange(24, dtype=torch.int32).reshape(8, 3),
+              "valid": torch.tensor([True, False] * 4),
+              "clock": torch.tensor(7, dtype=torch.int32)},
+        "prefix0": {"bind": torch.full((5, 2), 3, dtype=torch.int32)},
+    }
+
+
+def _zeros_like(tree):
+    return {k: {n: torch.zeros_like(x) for n, x in v.items()}
+            for k, v in tree.items()}
+
+
+def test_sharded_checkpoint_roundtrip(tmp_path):
+    tree = _shard_tree()
+    save_checkpoint(str(tmp_path), 3, tree, extra={"tag": "mesh"},
+                    n_shards=4, replicated=("prefix0",))
+    assert not (tmp_path / "step_3.npz").exists()
+    for r in range(4):
+        assert (tmp_path / f"step_3.shard{r}of4.npz").exists()
+    assert checkpoint_steps(str(tmp_path)) == [3]
+    assert latest_step(str(tmp_path)) == 3
+    validate_checkpoint(str(tmp_path), 3)
+    man = load_manifest(str(tmp_path), 3)
+    assert man["tag"] == "mesh" and man["shards"]["n"] == 4
+    assert man["n_arrays"] == 4
+    # sharded keys split along axis 0; replicated + scalars in shard 0
+    with np.load(tmp_path / "step_3.shard0of4.npz") as s0, \
+            np.load(tmp_path / "step_3.shard1of4.npz") as s1:
+        assert s0["0::table"].shape == (2, 3)
+        assert s1["0::table"].tolist() == [[6, 7, 8], [9, 10, 11]]
+        assert "prefix0::bind" in s0.files and "prefix0::bind" not in s1.files
+        assert "0::clock" in s0.files and "0::clock" not in s1.files
+    got = restore_checkpoint(str(tmp_path), 3, _zeros_like(tree))
+    for k in tree:
+        for n in tree[k]:
+            assert torch.equal(got[k][n], tree[k][n]), (k, n)
+
+
+def test_sharded_checkpoint_detects_torn_shard(tmp_path):
+    save_checkpoint(str(tmp_path), 1, _shard_tree(), n_shards=2,
+                    replicated=("prefix0",))
+    validate_checkpoint(str(tmp_path), 1)
+    path = tmp_path / "step_1.shard1of2.npz"
+    path.write_bytes(path.read_bytes()[:-7])        # torn tail
+    with pytest.raises(CheckpointError, match="shard"):
+        validate_checkpoint(str(tmp_path), 1)
+    assert latest_step(str(tmp_path)) is None
+    os.remove(path)
+    with pytest.raises(CheckpointError, match="missing shard"):
+        validate_checkpoint(str(tmp_path), 1)
+
+
+def test_sharded_checkpoint_rejects_indivisible_axis(tmp_path):
+    with pytest.raises(ValueError, match="not divisible"):
+        save_checkpoint(str(tmp_path), 1,
+                        {"a": torch.zeros((5, 2), dtype=torch.int32)},
+                        n_shards=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        ref_save(str(tmp_path / "ref"), 1,
+                 {"a": np.zeros((5, 2), np.int32)}, n_shards=2)
+
+
+def test_prune_keeps_referenced_delta_manifests_of_sharded_steps(tmp_path):
+    """Pruning removes every shard of a pruned step, and keeps a pruned
+    step's manifest while a kept step's delta chain references it."""
+    arrs = {"a": torch.zeros((4,), dtype=torch.int32)}
+    save_checkpoint(str(tmp_path), 1, arrs, extra={"svc": {"x": 1}},
+                    n_shards=2)
+    for s in (2, 3, 4):
+        save_checkpoint(
+            str(tmp_path), s, arrs,
+            extra={"svc_delta": {"prev": s - 1, "patch": {"x": s}}},
+            n_shards=2)
+    assert prune_checkpoints(str(tmp_path), keep_last=1) == [1, 2, 3]
+    for s in (1, 2, 3):
+        for r in range(2):
+            assert not (tmp_path / f"step_{s}.shard{r}of2.npz").exists()
+        assert (tmp_path / f"step_{s}.json").exists()
+    assert load_resolved_manifest(str(tmp_path), 4, "svc") == {"x": 4}
+    save_checkpoint(str(tmp_path), 5, arrs, extra={"svc": {"x": 5}},
+                    n_shards=2)
+    prune_checkpoints(str(tmp_path), keep_last=1)
+    assert sorted(os.listdir(tmp_path)) == [
+        "step_5.json", "step_5.shard0of2.npz", "step_5.shard1of2.npz"]
+
+
+def test_sharded_files_cross_packages_both_ways(tmp_path):
+    """A JAX ``save_checkpoint(n_shards=4, replicated=...)`` of a numpy
+    tree restores bit for bit through the port's ``restore_checkpoint``,
+    and the port's shard files restore through the JAX one — and each
+    package's shard files are byte-identical to the other's."""
+    from repro.checkpoint import restore_checkpoint as ref_restore
+    from repro.checkpoint import validate_checkpoint as ref_validate
+
+    tree = _shard_tree()
+    host = {k: {n: x.numpy() for n, x in v.items()} for k, v in tree.items()}
+    ref_save(str(tmp_path / "ref"), 2, host, extra={"k": 1}, n_shards=4,
+             replicated=("prefix0",))
+    validate_checkpoint(str(tmp_path / "ref"), 2)
+    got = restore_checkpoint(str(tmp_path / "ref"), 2, _zeros_like(tree))
+    for k in tree:
+        for n in tree[k]:
+            assert torch.equal(got[k][n], tree[k][n]), (k, n)
+    save_checkpoint(str(tmp_path / "port"), 2, tree, extra={"k": 1},
+                    n_shards=4, replicated=("prefix0",))
+    ref_validate(str(tmp_path / "port"), 2)
+    back = ref_restore(str(tmp_path / "port"), 2,
+                       {k: {n: np.zeros_like(x) for n, x in v.items()}
+                        for k, v in host.items()})
+    for k in host:
+        for n in host[k]:
+            assert np.array_equal(np.asarray(back[k][n]), host[k][n])
+    for r in range(4):
+        name = f"step_2.shard{r}of4.npz"
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "ref" / name).read_bytes()
+    assert load_manifest(str(tmp_path / "port"), 2) == \
+        load_manifest(str(tmp_path / "ref"), 2)
+
+
+def test_async_writer_writes_shards(tmp_path):
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(4, _shard_tree(), extra={"e": 1}, n_shards=2,
+            replicated=("prefix0",))
+    ck.wait()
+    assert checkpoint_steps(str(tmp_path)) == [4]
+    validate_checkpoint(str(tmp_path), 4)
+    assert (tmp_path / "step_4.shard1of2.npz").exists()
 
 
 def test_async_writer_snapshots_before_returning(tmp_path):

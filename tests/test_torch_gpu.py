@@ -7,7 +7,9 @@ The compat-join kernels must agree with their plain versions element for
 element (pairs in row-major order, overflow included, also where
 ``max_new`` falls on and inside a (row, B tile) cell; masks byte for
 byte, ragged rows and tiny tables included), and a CUDA-backend slot
-group must tick bit-identically to the REF backend on the card.  The embedding_bag and segment_sum kernels sum
+group must tick bit-identically to the REF backend on the card, and a
+replica-sharded service (R logical replicas on the card) as the
+single-device service.  The embedding_bag and segment_sum kernels sum
 in float32 in another order than their plain versions: float32 within
 rtol 1e-5 / atol 1e-5, bfloat16 within one bfloat16 rounding (rtol 1e-2
 / atol 1e-2).  The segment_sum edge cases (a hub node with 40% of the
@@ -707,3 +709,68 @@ def test_frontier_on_card_equals_ref_frontier_and_serve_stream(cuda):
     canon = svc("cuda")
     want_stream, _ = _serve_reports(canon, stream)
     assert got == want_stream
+
+
+@pytest.mark.parametrize("n_replicas,spr", [(1, 8), (2, 4), (8, 1)])
+def test_mesh_on_card_equals_single_device_service(cuda, n_replicas, spr,
+                                                  tmp_path):
+    """Replica-sharded serving on the card (R logical replicas on one
+    device, CUDA joins at S = spr, sharing on): per-tenant reports, state
+    rows and forest tables equal the single-device CUDA service's; the
+    summed ``MeshTickStats.n_matches`` equal the reports; a sharded
+    checkpoint restores onto the card with zero warm builds and, onto
+    two replicas, exactly once."""
+    from collections import Counter
+
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.runtime.mesh import ShardedSearchService
+    from repro_torch.runtime.service import ContinuousSearchService
+
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=4096, n_vertices=3000, n_vertex_labels=3, n_edge_labels=2,
+        seed=9, ts_step_max=2))
+    cap = dict(level_capacity=4096, l0_capacity=4096, max_new=1024)
+    single = ContinuousSearchService(
+        slots_per_group=8, tick_cache=SlotTickCache(), enable_sharing=True,
+        device="cuda", **cap)
+    tc = SlotTickCache()
+    ckpt = str(tmp_path)
+    mesh = ShardedSearchService(
+        n_replicas, spr, devices=("cuda",) * n_replicas, tick_cache=tc,
+        enable_sharing=True, ckpt_dir=ckpt, **cap)
+    assert mesh.backend == "cuda"
+    for q in _share_queries():
+        assert single.register(q, 120) == mesh.register(q, 120)
+    want, _ = _serve_reports(single, stream[:2048])
+    n_stats = []
+    before = dict(ops.compat_join_pairs.launches_by_slots)
+    got = Counter()
+
+    def on_match(qid, bind, ets):
+        got.update((qid,) + tuple(map(int, b)) + tuple(map(int, e))
+                   for b, e in zip(bind, ets))
+    mesh.serve_stream(stream[:2048], on_match=on_match, ckpt_every=4,
+                      on_tick=lambda i: n_stats.append(sum(
+                          s["n_matches"]
+                          for s in mesh.last_mesh_stats().values())),
+                      batch_size=256, min_batch=256, max_batch=256)
+    assert got == want and sum(got.values()) > 0
+    assert sum(n_stats) == sum(got.values())
+    assert ops.compat_join_pairs.launches_by_slots[spr] > before.get(spr, 0)
+    for qid in single.registry.qids():
+        for x, y in zip(_leaves(mesh.state(qid)), _leaves(single.state(qid))):
+            assert x.is_cuda and torch.equal(x, y)
+    for a, b in zip(mesh.forest.nodes(), single.forest.nodes()):
+        for x, y in zip(_leaves(a.state), _leaves(b.state)):
+            assert torch.equal(x, y)
+    builds = tc.n_builds
+    back = ShardedSearchService.restore(ckpt, tick_cache=tc,
+                                        devices=("cuda",) * n_replicas)
+    assert tc.n_builds == builds and back.n_replicas == n_replicas
+    re = ShardedSearchService.restore(ckpt, n_replicas=2,
+                                      devices=("cuda",) * 2)
+    kw = dict(batch_size=256, min_batch=256, max_batch=256)
+    for s in (single, back, re):
+        s.serve_stream(stream[2048:], **kw)
+    for qid in single.registry.qids():
+        assert back.matches(qid) == single.matches(qid) == re.matches(qid)

@@ -143,13 +143,21 @@ def test_the_walk_reaches_the_repaired_callables():
                 ("runtime.service", "ContinuousSearchService.serve_frontier"),
                 ("stream.ingest", "IngestFrontier"),
                 ("stream.chaos", "ChaosSource"),
-                ("runtime.fault", "FaultTolerantLoop")]:
+                ("runtime.fault", "FaultTolerantLoop"),
+                ("runtime.mesh", "ShardedSearchService"),
+                ("runtime.mesh", "ShardedSearchService.restore"),
+                ("runtime.mesh", "build_mesh_slot_tick"),
+                ("core.multi", "SlotTickCache.get_mesh"),
+                ("core.share", "SharedPrefixForest.replica_refcounts")]:
         assert key in names, key
     from repro_torch.core.multi import init_slot_state
     from repro_torch.core.share import SharedPrefixForest
     from repro_torch.core.state import init_state
+    from repro_torch.runtime.mesh import ShardedSearchService
     from repro_torch.runtime.service import ContinuousSearchService
     kw_only = inspect.Parameter.KEYWORD_ONLY
+    assert inspect.signature(ShardedSearchService).parameters[
+        "devices"].kind == kw_only
     for fn in (init_state, init_slot_state, SharedPrefixForest,
                ContinuousSearchService):
         assert inspect.signature(fn).parameters["device"].kind == kw_only

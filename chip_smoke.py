@@ -12,8 +12,10 @@ exit, nothing is caught and skipped):
                 one nvcc per source, all at once (ptxas -v lines);
   kernel_cases  the compat-join pair kernel against its plain version at
                 the serving path's join shapes, over a slot group of 8,
-                at S = 1 and at S = 4 (a mesh replica block): outputs
-                equal element for element;
+                at S = 1 and at S = 4 (a mesh replica block), and the
+                capacity phase's L0 joins at 4 shards (a gathered delta
+                of 32,768 rows shared by the shards against [4, 65,536];
+                2^31 pairs a slot): outputs equal element for element;
                 CUDA-event times (median of 20) beside the plain
                 version's and the least time the card could take; each
                 call's device time by kernel (cj_count / cj_scan /
@@ -98,6 +100,26 @@ exit, nothing is caught and skipped):
                 path), replaying exactly once each time, the
                 ``replica_refcounts`` partition checked; prints edges/s
                 and tick p50/p99 for each R and the session;
+  capacity      capacity sharding (``build_sharded_tick``) with n logical
+                shards on the card: the serve phase's chain and a
+                two-chain tenant, each one engine of 262,144 rows a table
+                (65,536 a shard at n = 4), ``max_new`` 8,192, the serve
+                phase's stream and 64 ticks, at n in 1, 2, 4; checks:
+                each tick's match count and rows equal to the unsharded
+                CUDA ``build_tick`` at the same capacity, overflow 0, 6
+                pair launches a tick at S = n, the shard-aware fold of
+                the final state equal to the unsharded current matches,
+                every leaf at n = 1 equal to the unsharded state; a REF
+                sharded run at n = 4 over the first 16 ticks identical
+                leaf for leaf; the chain over a shared prefix view at
+                depths 1 and 2 (n = 4, 16 ticks) equal to the unsharded
+                prefix tick; ``scale_to_mesh`` 4 -> 2 after tick 32, on to
+                tick 64, equal to the unsharded run; a
+                ``FaultTolerantLoop(mesh=, specs=)`` at n = 4 with
+                checkpoints every 16 ticks and a crash after tick 40
+                ending identical to the uninterrupted run; prints edges/s
+                and tick p50/p99 for each n and the unsharded engines,
+                and a tick's device ms with the pair kernel's by step;
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
@@ -117,7 +139,8 @@ exit, nothing is caught and skipped):
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
-each mask case's entry-point call, recsys_serve, gin_infer).  Then a {"kernels": [...]}
+each capacity run, each mask case's entry-point call, recsys_serve,
+gin_infer).  Then a {"kernels": [...]}
 line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
@@ -501,6 +524,31 @@ def _join_cases(rng, s: int):
     return cases
 
 
+def _gathered_cases(rng):
+    """The capacity phase's L0 joins at n = 4 shards of 65,536 rows: the
+    gathered delta (4 x 8,192 rows, one table shared by the shards, slot
+    stride 0) against every shard's table, as A in J1 and as B in J2;
+    with the window.  Each slot's A x B is 2^31 pairs."""
+    import numpy as np
+
+    s, cap, d = 4, LEVEL_CAP, 4 * MAX_NEW
+    windows = rng.integers(3000, 9000, s, dtype=np.int32)
+    two_rel = np.zeros((3, 3), bool)
+    two_rel[0, 0] = True                                        # shared v0
+    two_trel = np.zeros((2, 2), np.int8)
+
+    def shared(rows):
+        return tuple(x[0] for x in _table(rng, 1, rows, 3, 2, 0.5, 3000,
+                                          30000))
+
+    j1 = (shared(d), _table(rng, s, cap, 3, 2, 0.2, 3000, 30000), two_rel,
+          two_trel)
+    j2 = (_table(rng, s, cap, 3, 2, 0.2, 3000, 30000), shared(d), two_rel,
+          two_trel)
+    return [("gathered_l0_j1_window", j1, windows, MAX_NEW),
+            ("gathered_l0_j2_window", j2, windows, MAX_NEW)]
+
+
 def _work(tensors, rel, trel, window, out_bytes, n_slots):
     """(bytes, operations) the join needs on these inputs: each input
     read once and ``out_bytes`` of output written once; the predicate on
@@ -547,6 +595,8 @@ def phase_kernels(torch, seed: int):
     cases += [(1, "s1_", c) for c in _join_cases(rng, 1)]
     # the mesh phase's other width (2 replicas of 4 slots)
     cases += [(4, "s4_", c) for c in _join_cases(rng, 4)]
+    # the capacity phase's L0 joins at 4 shards: a gathered delta shared
+    cases += [(4, "s4_", c) for c in _gathered_cases(rng)]
     for n_slots, prefix, (name, (a, b, rel, trel), win, max_new) in cases:
         name = prefix + name
         tensors = [torch.as_tensor(x, device=dev) for x in (*a, *b)]
@@ -1936,6 +1986,351 @@ def phase_mesh(torch, args, stream):
 
 
 # --------------------------------------------------------------------- #
+# capacity: capacity-sharded engines (build_sharded_tick) on the card
+# --------------------------------------------------------------------- #
+CAPACITY_TOTAL = 4 * LEVEL_CAP     # rows a table, over all shards: 262,144
+CAPACITY_SHARDS = (1, 2, 4)
+CAPACITY_TENANTS = (0, 8)          # tenants(): the 3-edge chain, a two-chain
+CAPACITY_SUB_TICKS = 16            # the REF run and the prefix lift
+CAPACITY_RESCALE = (4, 2, 32)      # scale_to_mesh 4 -> 2 after tick 32
+CAPACITY_CKPT_EVERY = 16
+CAPACITY_CRASH_TICK = 40
+L0_DIMS = "Dims<3, 3, 2, 2,"       # the two-chain's L0 joins (J1 and J2)
+
+
+def _cap_plans(stream):
+    """The capacity phase's two tenants as plans at the total capacity."""
+    from repro_torch.core.plan import compile_plan
+
+    ts = tenants(stream)
+    return [(ts[i][0], compile_plan(
+        ts[i][1], ts[i][2], level_capacity=CAPACITY_TOTAL,
+        l0_capacity=CAPACITY_TOTAL, max_new=MAX_NEW))
+        for i in CAPACITY_TENANTS]
+
+
+def _match_rows(res) -> Counter:
+    """A host TickResult's extracted match rows as a multiset."""
+    bind, ets, valid = (x.cpu().numpy() for x in (
+        res.match_bindings, res.match_ets, res.match_valid))
+    return Counter(tuple(map(int, b)) + tuple(map(int, e))
+                   for b, e in zip(bind[valid], ets[valid]))
+
+
+def _drive(torch, ticks, states, batches, views=None, snap_at=()):
+    """Tick every engine over ``batches``, one synchronise a tick; returns
+    the final states, the states after each tick in ``snap_at``, the
+    per-tick results (kept on the card until the loop ends, then as
+    (count, overflow, match multiset) per engine) and the per-tick wall
+    ms.  ``views(t)`` gives the shared-prefix view of tick t."""
+    snaps, results, lat = {}, [], []
+    _sync(torch)
+    for t, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        out = []
+        for k, tick in enumerate(ticks):
+            if views is None:
+                states[k], res = tick(states[k], batch)
+            else:
+                states[k], res = tick(states[k], batch, views(t))
+            out.append(res)
+        _sync(torch)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        results.append(out)
+        if t + 1 in snap_at:
+            snaps[t + 1] = list(states)
+    host = [[(int(r.n_new_matches), int(r.n_overflow), _match_rows(r))
+             for r in out] for out in results]
+    return states, snaps, host, lat
+
+
+def _tick_device_ms(torch, fn, reps: int = 3) -> dict:
+    """Device ms of one call of ``fn`` (one tick of every engine) from
+    ``torch.profiler``: all device operations, the pair kernels by step,
+    and count + emit by join (the two-chain's L0 joins, ``L0_DIMS``, or
+    the level joins); a window that catches no pair kernel is taken again
+    (at most ``PROFILE_TRIES``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(torch)
+    for tries in range(1, PROFILE_TRIES + 1):
+        if tries > 1:
+            time.sleep(0.1 * tries)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            _sync(torch)
+        total, steps, joins, n_ops = 0.0, Counter(), Counter(), 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not _dev_us(e):
+                continue
+            ms = _dev_us(e) / 1e3 / reps
+            total += ms
+            n_ops += e.count
+            name = _kernel_name(e.key)
+            if name.startswith("cj_"):
+                steps[name] += ms
+                if name != "cj_scan":
+                    joins["l0" if L0_DIMS in e.key else "level"] += ms
+        if steps:
+            break
+    return {"device_ms": total, "device_ops": n_ops / reps,
+            "pair_ms_by_step": dict(steps),
+            "count_emit_ms_by_join": dict(joins), "profile_windows": tries}
+
+
+def _same_states(torch, a, b, what: str) -> int:
+    """Fails unless two lists of engine states are identical, leaf for
+    leaf; returns the number of leaves compared."""
+    n = 0
+    for x, y in zip(_flat(tuple(a)), _flat(tuple(b))):
+        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+            fail(f"capacity: {what}: a state leaf differs")
+        n += 1
+    return n
+
+
+def _same_ticks(got, want, what: str, offset: int = 0) -> None:
+    """Per tick and engine: the same match count and multiset, and no
+    overflow on either side."""
+    for t, (g, w) in enumerate(zip(got, want)):
+        for k, ((gn, go, gm), (wn, wo, wm)) in enumerate(zip(g, w)):
+            if go or wo:
+                fail(f"capacity: {what}: tick {t + offset} engine {k} "
+                     f"overflowed ({go} vs {wo})")
+            if gn != wn or gm != wm:
+                fail(f"capacity: {what}: tick {t + offset} engine {k}: "
+                     f"{gn} matches ({sum(gm.values())} rows) vs the "
+                     f"unsharded {wn} ({sum(wm.values())})")
+
+
+def _lat_stats(n_edges, lat) -> dict:
+    return {"edges_per_s": n_edges / (sum(lat) / 1e3),
+            "wall_s": sum(lat) / 1e3, "tick_ms_p50": _pctl(lat, 0.5),
+            "tick_ms_p99": _pctl(lat, 0.99), "tick_ms_first": lat[0],
+            "tick_ms_p99_after_first": _pctl(lat[1:], 0.99)}
+
+
+def phase_capacity(torch, args, stream):
+    """Capacity sharding on the card: the chain and a two-chain of the
+    serve phase, each one engine whose tables (262,144 rows each) are
+    split over n shards — ``build_sharded_tick`` on a mesh of
+    ``("cuda",) * n``, n logical shards on the one card — against the
+    unsharded CUDA ``build_tick`` at the same total capacity; a REF
+    sharded run, the prefix lift, a 4 -> 2 rescale and a crash restored
+    through ``FaultTolerantLoop(mesh=, specs=)``."""
+    import tempfile
+
+    from repro_torch.core.distributed import (
+        _sharded_current_matches,
+        _state_specs,
+        build_sharded_tick,
+        make_mesh,
+    )
+    from repro_torch.core.engine import build_tick, current_matches
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.core.share import SharedPrefixForest
+    from repro_torch.core.state import init_state, make_batch
+    from repro_torch.kernels.compat_join import ops
+    from repro_torch.runtime.elastic import scale_to_mesh
+    from repro_torch.runtime.fault import FaultTolerantLoop, \
+        SimulatedFailure
+    from repro_torch.stream.generator import to_batches
+
+    plans = _cap_plans(stream)
+    batches = [make_batch(**b, device=DEVICE)
+               for b in to_batches(stream, BATCH)]
+    n_ticks, n_edges = len(batches), len(stream)
+    sub = min(CAPACITY_SUB_TICKS, n_ticks)
+
+    def mesh(n):
+        return make_mesh((n,), ("data",), devices=(DEVICE,) * n)
+
+    # -- the unsharded engines at the same total capacity -----------------
+    _free(torch)
+    ticks1 = [build_tick(p, extract_matches=True, device=DEVICE)
+              for _, p in plans]
+    s1, snaps1, want, lat1 = _drive(
+        torch, ticks1, [init_state(p, device=DEVICE) for _, p in plans],
+        batches)
+    if not any(n for tick in want for n, _, _ in tick):
+        fail("capacity: the unsharded engines found no matches")
+    unsharded = {**_lat_stats(n_edges, lat1),
+                 "matches_total": sum(n for tk in want for n, _, _ in tk),
+                 "matches_by_tenant": [sum(tk[k][0] for tk in want)
+                                       for k in range(len(plans))],
+                 "pair_device": _tick_device_ms(
+                     torch, lambda: [tk(s, batches[-1])
+                                     for tk, s in zip(ticks1, s1)])}
+    cur1 = [current_matches(p, s) for (_, p), s in zip(plans, s1)]
+
+    # -- the sharded engines at n = 1, 2, 4: the main path ---------------
+    runs, by_slots_all, launches_all, keep = [], Counter(), 0, {}
+    per_tick = 2 + 4        # chain: 2 level joins; two-chain: 2 + J1 + J2
+    for n in CAPACITY_SHARDS:
+        _free(torch)
+        m = mesh(n)
+        built = [build_sharded_tick(p, m, extract_matches=True)
+                 for _, p in plans]
+        ticks = [tk for tk, _ in built]
+        ops.compat_join_pairs.launches = 0      # counts of this path
+        ops.compat_join_pairs.launches_by_slots.clear()
+        states, snaps, got, lat = _drive(
+            torch, ticks, [s for _, s in built], batches,
+            snap_at=(sub, CAPACITY_RESCALE[2]))
+        launches = ops.compat_join_pairs.launches
+        by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+        what = f"n = {n}"
+        if by_slots != {n: per_tick * n_ticks}:
+            fail(f"capacity: {what}: pair launches by slot count {by_slots},"
+                 f" not {per_tick} a tick at S = {n}")
+        _same_ticks(got, want, what)
+        for (_, p), s, c in zip(plans, states, cur1):
+            if int(s.stats.n_overflow):
+                fail(f"capacity: {what}: overflow {int(s.stats.n_overflow)}")
+            if _sharded_current_matches(p, s, n) != c:
+                fail(f"capacity: {what}: the shard-aware fold of the final "
+                     "state differs from the unsharded current matches")
+        n_leaves = _same_states(torch, states, s1, "n = 1 vs unsharded") \
+            if n == 1 else None
+        runs.append({
+            "n_shards": n, "rows_a_shard": CAPACITY_TOTAL // n,
+            **_lat_stats(n_edges, lat),
+            "matches_total": sum(n_ for tk in got for n_, _, _ in tk),
+            "compat_join_launches": launches,
+            "compat_join_launches_by_slots": {
+                str(k): v for k, v in sorted(by_slots.items())},
+            "n1_state_leaves_equal": n_leaves,
+            "pair_device": _tick_device_ms(
+                torch, lambda: [tk(s, batches[-1])
+                                for tk, s in zip(ticks, states)])})
+        by_slots_all.update(by_slots)
+        launches_all += launches
+        if n == 4:
+            keep = {"ticks": ticks, "final": states, "snaps": snaps,
+                    "mesh": m}
+        del built, states, snaps, got
+
+    # -- REF against CUDA: the 4-shard run over the first ticks ------------
+    _free(torch)
+    m4 = keep["mesh"]
+    built = [build_sharded_tick(p, m4, backend="ref", extract_matches=True)
+             for _, p in plans]
+    t0 = time.perf_counter()
+    sref, _, _, _ = _drive(torch, [tk for tk, _ in built],
+                           [s for _, s in built], batches[:sub])
+    ref_wall = time.perf_counter() - t0
+    n_ref_leaves = _same_states(torch, sref, keep["snaps"][sub],
+                                "REF vs CUDA at n = 4")
+    del built, sref
+    _free(torch)
+
+    # -- the prefix lift: the chain over a shared prefix view -------------
+    _, chain = plans[0]
+    prefix = {}
+    for depth in (1, 2):
+        forest = SharedPrefixForest(
+            SlotTickCache(), "cuda" if DEVICE == "cuda" else "ref",
+            device=DEVICE)
+        node = forest.acquire(chain, epoch=0)
+        while node.depth > depth:
+            node = node.parent
+        views = []
+
+        def view(t, forest=forest, node=node, views=views):
+            if len(views) <= t:          # one advance a tick, shared
+                views.append(forest.advance(batches[t])[0][node.pid])
+            return views[t]
+
+        tick_u = build_tick(chain, extract_matches=True, prefix_depth=depth,
+                            device=DEVICE)
+        _, _, want_p, _ = _drive(
+            torch, [tick_u], [init_state(chain, depth, device=DEVICE)],
+            batches[:sub], views=view)
+        tick_s, s0 = build_sharded_tick(chain, m4, extract_matches=True,
+                                        prefix_depth=depth)
+        _, _, got_p, _ = _drive(torch, [tick_s], [s0], batches[:sub],
+                                views=view)
+        _same_ticks(got_p, want_p, f"prefix depth {depth}")
+        prefix[str(depth)] = {
+            "ticks": sub, "matches": sum(tk[0][0] for tk in got_p)}
+        if not prefix[str(depth)]["matches"]:
+            fail(f"capacity: prefix depth {depth}: no matches")
+        del forest, views
+    _free(torch)
+
+    # -- rescale 4 -> 2 after tick 32, then on to the end ------------------
+    n_old, n_new, at = CAPACITY_RESCALE
+    m_new = mesh(n_new)
+    _sync(torch)
+    t0 = time.perf_counter()
+    moved = [scale_to_mesh(s, mesh(n_old), m_new,
+                           _state_specs(s, ("data",)))
+             for s in keep["snaps"][at]]
+    _sync(torch)
+    rescale_s = time.perf_counter() - t0
+    ticks_new = [build_sharded_tick(p, m_new, extract_matches=True)[0]
+                 for _, p in plans]
+    _, _, got_r, _ = _drive(torch, ticks_new, moved, batches[at:])
+    _same_ticks(got_r, want[at:], f"rescale {n_old} -> {n_new}", at)
+
+    # -- crash after tick 40, restored onto the 4-shard mesh ---------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capacity_")
+    crash = min(CAPACITY_CRASH_TICK, n_ticks - 1)
+    ticks4 = keep["ticks"]
+    crashed = []
+
+    def step(state, i):
+        if i == crash and not crashed:
+            crashed.append(i)
+            raise SimulatedFailure(f"injected after tick {crash}")
+        return tuple(tk(s, batches[i])[0] for tk, s in zip(ticks4, state))
+
+    def init():
+        return tuple(init_state(p, device=DEVICE) for _, p in plans)
+
+    specs = tuple(_state_specs(s, ("data",)) for s in init())
+    loop = FaultTolerantLoop(tmp, step, init,
+                             ckpt_every=CAPACITY_CKPT_EVERY, mesh=m4,
+                             specs=specs)
+    _sync(torch)
+    t0 = time.perf_counter()
+    final = loop.run(n_ticks)
+    _sync(torch)
+    loop_s = time.perf_counter() - t0
+    if loop.restarts != 1 or crashed != [crash]:
+        fail(f"capacity: the loop restarted {loop.restarts} times")
+    n_loop_leaves = _same_states(torch, final, keep["final"],
+                                 "crash + restore vs uninterrupted")
+
+    out = {
+        "phase": "capacity", "device": DEVICE, "edges": n_edges,
+        "batch": BATCH, "ticks": n_ticks,
+        "tenants": [kind for kind, _ in plans],
+        "capacity_total": CAPACITY_TOTAL, "max_new": MAX_NEW,
+        "unsharded": unsharded, "runs": runs,
+        "ref_parity": {"n_shards": 4, "ticks": sub,
+                       "state_leaves_equal": n_ref_leaves,
+                       "ref_wall_s": ref_wall, "identical": True},
+        "prefix_lift": {"n_shards": 4, "depths": prefix},
+        "rescale": {"from": n_old, "to": n_new, "after_tick": at,
+                    "seconds": rescale_s, "ticks_after": n_ticks - at,
+                    "matches_after": sum(tk[k][0] for tk in got_r
+                                         for k in range(len(plans)))},
+        "crash_restore": {"n_shards": 4, "ckpt_every": CAPACITY_CKPT_EVERY,
+                          "crash_after_tick": crash,
+                          "restarts": loop.restarts, "loop_s": loop_s,
+                          "state_leaves_equal": n_loop_leaves},
+    }
+    emit(out)
+    return out, launches_all, dict(by_slots_all)
+
+
+# --------------------------------------------------------------------- #
 # substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
 # --------------------------------------------------------------------- #
 def _pctl(xs, q: float) -> float:
@@ -2504,6 +2899,9 @@ def main(argv=None) -> int:
     _free(torch)
     _, mesh_launches, mesh_by_slots, mesh_by_replicas = phase_mesh(
         torch, args, stream)
+    _free(torch)
+    _, capacity_launches, capacity_by_slots = phase_capacity(torch, args,
+                                                             stream)
     del stream
     _free(torch)
     bags = phase_embedding_bag(torch, args.seed)
@@ -2539,6 +2937,9 @@ def main(argv=None) -> int:
               launches_mesh_by_slots={
                   str(k): v for k, v in sorted(mesh_by_slots.items())},
               launches_mesh_by_replicas=mesh_by_replicas,
+              launches_capacity=capacity_launches,
+              launches_capacity_by_slots={
+                  str(k): v for k, v in sorted(capacity_by_slots.items())},
               tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",

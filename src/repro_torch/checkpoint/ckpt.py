@@ -34,9 +34,18 @@ The async writer copies every tensor to host memory synchronously before
 next tick, so the snapshot must not alias them), then writes the file on
 a background thread.
 
-Placing a restored tree onto a capacity-sharded layout
-(``restore_checkpoint(mesh=, specs=)`` and ``reshard``) belongs to the
-capacity-sharding slice of the port and raises ``NotImplementedError``.
+Placing a tree onto a mesh (``reshard``, ``restore_checkpoint(mesh=,
+specs=)``; ``repro_torch.core.distributed``'s ``Mesh`` and
+``PartitionSpec``) puts every leaf on the mesh's device and checks that
+each sharded axis divides by its shard count.  The port keeps the
+reference's global shapes on its one-controller mesh, so a capacity-
+sharded state is saved as its concatenated global arrays under the
+reference's keys, and a JAX sharded checkpoint (``save_checkpoint`` of
+``jax.device_get`` of the state) restores into the port, and back.  A
+generic restore cannot know the shard count that wrote an engine state
+(its ``parent`` pointers are shard-local): an engine state goes back at
+the same count, or through ``repro_torch.runtime.elastic.
+scale_to_mesh``.
 """
 
 from __future__ import annotations
@@ -59,9 +68,6 @@ SEP = "::"
 # Torn-delta fallbacks observed by load_resolved_manifest in this
 # process (a delta manifest chain that could not be replayed).
 N_DELTA_FALLBACKS = 0
-
-_MESH = ("placing a checkpoint onto a capacity-sharded layout (mesh=/specs=, "
-         "reshard) belongs to the capacity-sharding slice of the port")
 
 
 class CheckpointError(RuntimeError):
@@ -502,9 +508,16 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
     drifted — a configuration error that must be loud.  A sharded step
     is reassembled on the host (``_load_sharded``), whatever the number
     of replicas that wrote it.
+
+    With ``mesh`` and ``specs`` the restored tree goes through
+    ``reshard``: every leaf a tensor on the mesh's device, in the
+    reference's global shape.  That places an engine state back at the
+    shard count it was written with; onto another count, pass it through
+    ``repro_torch.runtime.elastic.scale_to_mesh``.
     """
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(_MESH)
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore_checkpoint needs both mesh= and specs=, "
+                         "or neither")
     npz, _ = _paths(ckpt_dir, step)
     try:
         data = np.load(npz)
@@ -533,11 +546,33 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
                                            dtype=like.dtype)
         return arr.astype(np.asarray(like).dtype)
 
-    return _unflatten(like_tree, leaf)
+    tree = _unflatten(like_tree, leaf)
+    return tree if mesh is None else reshard(tree, mesh, specs)
 
 
 def reshard(tree, mesh, specs):
-    raise NotImplementedError(_MESH)
+    """Place ``tree`` onto ``mesh`` under the ``PartitionSpec`` tree
+    ``specs`` (the same structure): every leaf becomes a tensor of its
+    dtype on the mesh's device, in its global shape.  An axis that a
+    spec splits over mesh axes must divide by their product
+    (``ValueError`` otherwise)."""
+    by_key = dict(_walk(specs))
+
+    def leaf(key, x):
+        try:
+            spec = by_key[key]
+        except KeyError as e:
+            raise ValueError(f"no PartitionSpec for {key!r}") from e
+        x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        for dim in range(x.dim()):
+            n = spec.shards(mesh, dim)
+            if x.shape[dim] % n:
+                raise ValueError(
+                    f"{key}: axis {dim} of {tuple(x.shape)} is not "
+                    f"divisible by {n} shards ({spec})")
+        return x.to(mesh.device)
+
+    return _unflatten(tree, leaf)
 
 
 class AsyncCheckpointer:

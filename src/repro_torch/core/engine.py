@@ -33,10 +33,21 @@ a slot axis; the joins take it as a shared operand (slot stride 0 in the
 CUDA kernel) and the gathers index it directly, so it is never copied
 per slot.
 
-Left out (a later slice; it raises ``NotImplementedError``): capacity
-sharding (``axis_name``/``n_shards``).  Replica sharding of the slot axis
-needs nothing here: ``repro_torch.runtime.mesh`` runs this body over
-each replica's slot block.
+Capacity sharding (``axis_name`` set, ``n_shards`` = n): every table's
+capacity axis is split into n shards, and the body runs with the shard
+axis as its slot axis (S = n; ``repro_torch.core.distributed`` views a
+global ``[C, ...]`` leaf as ``[n, C/n, ...]``).  The reference's
+``shard_map`` collectives become tensor operations over that axis:
+``axis_index`` is ``arange(n)``, a tiled ``all_gather`` of the per-shard
+``[n, d, ...]`` deltas is a reshape to ``[n*d, ...]`` that the join
+takes as a shared operand, and ``psum`` is a sum over the shard axis,
+broadcast back.  The design rules are the reference's: level-0 appends
+are dealt round robin by batch position, a level-j row lands on its
+parent's shard (so ``parent`` pointers are shard-local), and pairs
+computed on replicated inputs (a shared prefix view) are partitioned by
+pair index.  Replica sharding of the slot axis needs nothing here:
+``repro_torch.runtime.mesh`` runs this body over each replica's slot
+block.
 """
 
 from __future__ import annotations
@@ -156,8 +167,11 @@ def _append_l0(table: L0Table, bindings, ets, req_valid):
 def _compact(view: _View, mask, size: int):
     """Gather up to ``size`` rows of ``view`` where ``mask`` [S, C], per
     slot; returns a _View of static size plus the overflow count [S].  A
-    shared view (mask [C]) compacts once, into a shared view (count
-    [1])."""
+    shared view under a shared mask [C] compacts once, into a shared view
+    (count [1]); under a per-slot mask each slot compacts its own rows of
+    it."""
+    if view.shared and mask.dim() == 2:
+        view = _View(*(x.expand(mask.shape[0], *x.shape) for x in view[:4]))
     if view.shared:
         out, safe, n_drop = _compact(
             _View(view.bind[None], view.ets[None], view.valid[None],
@@ -174,6 +188,27 @@ def _compact(view: _View, mask, size: int):
         safe,
         n_drop,
     )
+
+
+def _own_rows(n_shards: int, n: int, device) -> torch.Tensor:
+    """Round-robin shard ownership over a row or pair index: bool
+    [n_shards, n], row k true where ``index % n_shards == k`` (the
+    reference's ``arange(n) % n_shards == axis_index``)."""
+    idx = torch.arange(n, device=device)
+    return (idx % n_shards)[None, :] == torch.arange(
+        n_shards, device=device)[:, None]
+
+
+def _all_gather(view: _View) -> _View:
+    """The tiled all-gather of per-shard rows ``[n, d, ...]``: one shared
+    ``[n*d, ...]`` view, shard 0's rows first."""
+    return _View(*(x.reshape(-1, *x.shape[2:]) for x in view[:4]),
+                 shared=True)
+
+
+def _psum(x: torch.Tensor) -> torch.Tensor:
+    """The shard axis' sum, broadcast back to every shard."""
+    return x.sum(dim=0, dtype=x.dtype).expand(x.shape[0])
 
 
 def edge_match_mask(batch: EdgeBatch, esl, edl, eel, *,
@@ -228,11 +263,31 @@ def build_tick_body(
     0's reconstruction chain exactly where the local level
     ``prefix_depth - 1`` view would have, and end-of-tick expiry
     cascades from its ``valid_after``.
+
+    Capacity sharding (``axis_name`` set): the slot axis is the shard
+    axis, S = ``n_shards``, and slot k holds shard k's ``C/n`` rows of
+    every table; the batch, ``window`` and ``prefix_view`` are
+    replicated.  Level-0 appends are dealt round robin by batch position,
+    the deltas of the L0 joins are gathered across shards, pairs computed
+    on replicated inputs are partitioned by pair index (their drops
+    counted once), and ``n_new_matches``, ``n_overflow`` and
+    ``n_edges_discarded`` are summed over the shards, so every shard
+    returns the same scalars.  Without ``axis_name`` ``n_shards`` is
+    ignored, as in the reference.  A table capacity that ``n_shards``
+    does not divide raises ``ValueError``.
     """
-    if axis_name is not None or n_shards != 1:
-        raise NotImplementedError(
-            "capacity sharding (axis_name / n_shards) is a later slice of "
-            "the port")
+    sharded = axis_name is not None
+    if sharded:
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        caps = [lv.capacity for si, sq in enumerate(plan.subqueries)
+                for lv in sq.levels[(prefix_depth if si == 0 else 0):]]
+        caps += [js.capacity for js in plan.l0_joins]
+        bad = [c for c in caps if c % n_shards]
+        if bad:
+            raise ValueError(
+                f"table capacities {sorted(set(bad))} are not divisible by "
+                f"n_shards={n_shards}")
     if prefix_depth:
         if not (0 < prefix_depth <= len(plan.subqueries[0].levels)):
             raise ValueError(
@@ -326,6 +381,10 @@ def build_tick_body(
                    for t in state.l0)
 
         n_overflow = torch.zeros((n_slots,), dtype=I32, device=dev)
+        # drops counted on REPLICATED inputs (joins of the shared prefix
+        # view under sharding): every shard counts the same drop, so this
+        # bucket is summed over the shards, then divided by n_shards
+        n_overflow_repl = torch.zeros((n_slots,), dtype=I32, device=dev)
 
         # -- 1. per-query-edge label match mask [S, n_qedges, B] ------- #
         edge_used = ematch.any(dim=1)
@@ -334,6 +393,11 @@ def build_tick_body(
         bbind = torch.stack([batch.src, batch.dst], dim=1)  # [B, 2] shared
         bets = batch.ts[:, None]                            # [B, 1] shared
         n_b = batch.src.shape[0]
+        if sharded:
+            if n_slots != n_shards:
+                raise ValueError(f"a state of {n_slots} shards for "
+                                 f"n_shards={n_shards}")
+            own1 = _own_rows(n_shards, n_b, dev)    # level-0 round robin
 
         # -- 2. subquery phase: level-ordered batched inserts ---------- #
         recons: list[list[_View]] = []
@@ -355,7 +419,8 @@ def build_tick_body(
                 if li == 0:
                     t, nd = _append_level(
                         sub[0], torch.full_like(em, -1, dtype=I32),
-                        batch.src, batch.dst, batch.ts, em)
+                        batch.src, batch.dst, batch.ts,
+                        em & own1 if sharded else em)
                     sub[0] = t
                     n_overflow += nd
                 else:
@@ -365,7 +430,14 @@ def build_tick_body(
                         bbind, bets, em,
                         level_rel[(si, li)], _trel_chain(prev.ets.shape[-1]),
                         lv.max_new, window, backend)
-                    n_overflow += nd1
+                    if sharded and li == start and start:
+                        # the left side is the replicated prefix view:
+                        # every shard computed the same pairs; partition
+                        # them so that each lands exactly once
+                        pv = pv & _own_rows(n_shards, pv.shape[1], dev)
+                        n_overflow_repl += nd1
+                    else:
+                        n_overflow += nd1
                     b_idx = b_idx.clamp(0, n_b - 1)
                     t, nd2 = _append_level(
                         sub[ti], a_idx, batch.src[b_idx], batch.dst[b_idx],
@@ -394,6 +466,12 @@ def build_tick_body(
         levels = tuple(new_levels)
 
         # -- 3. L_0 phase: delta joins across TC-subqueries ------------ #
+        # When subquery 0 is FULLY prefixed its final view is the shared
+        # (replicated) prefix table itself: its delta needs no gather,
+        # and joins with it on the left give replicated pairs that are
+        # partitioned before appending.
+        a_repl = bool(prefix_depth) \
+            and prefix_depth == len(plan.subqueries[0].levels)
         new_l0 = []
         a_view = recons[0][-1]  # L_0^1 ≡ P_1's final item (paper Fig. 8)
         for gi, js in enumerate(plan.l0_joins):
@@ -404,7 +482,12 @@ def build_tick_body(
 
             # J1: ΔA ⋈ B (old ∪ Δ)
             da, _, nd0 = _compact(a_view, a_view.fresh & a_view.valid, d)
-            n_overflow += nd0
+            if a_repl:
+                n_overflow_repl += nd0
+            else:
+                n_overflow += nd0
+            if sharded and not a_repl:
+                da = _all_gather(da)
             a1, b1, pv1, nd1 = J.join_pairs(
                 da.bind, da.ets, da.valid,
                 b_view.bind, b_view.ets, b_view.valid,
@@ -420,31 +503,47 @@ def build_tick_body(
 
             # J2: A_old ⋈ ΔB
             db, _, nd3 = _compact(b_view, b_view.fresh & b_view.valid, d)
+            if sharded:
+                db = _all_gather(db)
             a2, b2, pv2, nd4 = J.join_pairs(
                 a_view.bind, a_view.ets, a_view.valid & ~a_view.fresh,
                 db.bind, db.ets, db.valid,
                 js.rel, js.trel, d, window, backend)
-            n_overflow += nd4
-            nb2 = _rows(db.bind, b2)
+            if sharded and a_repl:
+                # replicated A x gathered (replicated) ΔB: the same pairs
+                # on every shard; partition them before appending
+                pv2 = pv2 & _own_rows(n_shards, pv2.shape[1], dev)
+                n_overflow_repl += nd4
+            else:
+                n_overflow += nd4
+            nb2 = _rows(db.bind, b2, db.shared)
             out_bind2 = torch.cat(
                 [_rows(a_view.bind, a2, a_view.shared)]
                 + ([nb2[:, :, new_b]] if new_b else []),
                 dim=2)
             out_ets2 = torch.cat(
-                [_rows(a_view.ets, a2, a_view.shared), _rows(db.ets, b2)],
-                dim=2)
+                [_rows(a_view.ets, a2, a_view.shared),
+                 _rows(db.ets, b2, db.shared)], dim=2)
             tbl, nd5 = _append_l0(tbl, out_bind2, out_ets2, pv2)
 
             n_overflow += nd1 + nd2 + nd3 + nd5
             new_l0.append(tbl)
             a_view = _View(tbl.bindings, tbl.ets, tbl.valid, tbl.fresh)
+            a_repl = False       # the L0 table itself is always sharded
         l0 = tuple(new_l0)
 
         # -- 4. emit (before end-of-tick expiry: a match created mid-tick
         #       is reported even if it expires within the same tick) --- #
         final = a_view
         new_mask = final.fresh & final.valid
+        if sharded and a_repl:
+            # a fully prefixed chain query: the final view is replicated;
+            # partition emission so that each match is reported once
+            new_mask = new_mask & _own_rows(n_shards, new_mask.shape[-1],
+                                            dev)
         n_new = new_mask.sum(dim=-1, dtype=I32).expand(n_slots)
+        if sharded:
+            n_new = _psum(n_new)
         if extract_matches:
             out, _, nd = _compact(final, new_mask, max_out)
             mb, me, mv = out.bind, out.ets, out.valid
@@ -467,6 +566,13 @@ def build_tick_body(
         levels, l0 = _expire(
             levels, l0, t_now - window,
             prefix_view.valid_after if prefix_depth else None)
+
+        if sharded:
+            n_overflow = _psum(n_overflow) + _psum(n_overflow_repl) \
+                // n_shards
+            n_discard = _psum(n_discard) // n_shards
+        else:
+            n_overflow = n_overflow + n_overflow_repl
 
         stats = EngineStats(
             n_matches_total=state.stats.n_matches_total + n_new,
@@ -503,6 +609,16 @@ def build_tick(
     default (``JoinBackend.CUDA`` on a CUDA device, ``REF`` on the CPU);
     ``JoinBackend.CUDA`` on a CPU device raises.  ``extract_matches=False``
     skips materializing result bindings (throughput mode).
+
+    With ``axis_name`` set the tick is capacity-sharded over ``n_shards``
+    (``repro_torch.core.distributed.build_sharded_tick`` builds it on a
+    mesh).  ``state`` keeps the reference's global shapes — every table
+    leaf ``[C, ...]``, shard k's rows at ``[k*C/n, (k+1)*C/n)``, with
+    shard-local ``parent`` pointers; every scalar ``[]`` — and the result
+    does too: match rows ``[n*max_out, ...]`` in shard order, the
+    scalars summed over the shards.  The tick views each leaf as
+    ``[n, C/n, ...]`` and runs the body over the shard axis, so the n
+    shards cost one body, not n.
     """
     device = resolve_device(device)
     backend = J.resolve_backend(backend, device)
@@ -523,13 +639,21 @@ def build_tick(
                      lab(plan.edge_edge_label))
     window = torch.tensor([plan.window], dtype=I32, device=device)
 
+    n = n_shards if axis_name is not None else 1
+
+    def to_shards(x):
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:]) if x.dim() \
+            else x.expand(n)
+
+    def from_shards(x):     # shard scalars agree: shard 0's is the value
+        return x.reshape(-1, *x.shape[2:]) if x.dim() > 1 else x[0]
+
     def run(state, batch, prefix_view, watermark):
-        stacked = map_state(lambda x: x.unsqueeze(0), state)
-        em = edge_match_mask(batch, esl, edl, eel).unsqueeze(0)
+        stacked = map_state(to_shards, state)
+        em = edge_match_mask(batch, esl, edl, eel).expand(n, -1, -1)
         new, res = body(stacked, batch, em, window, watermark=watermark,
                         prefix_view=prefix_view)
-        return (map_state(lambda x: x.squeeze(0), new),
-                map_state(lambda x: x.squeeze(0), res))
+        return map_state(from_shards, new), map_state(from_shards, res)
 
     if prefix_depth:
         def tick(state: EngineState, batch: EdgeBatch, prefix_view,

@@ -61,15 +61,39 @@ def resolve_backend(backend: str | None, device) -> str:
 # --------------------------------------------------------------------- #
 # Static-size index helpers (no host synchronisation).
 # --------------------------------------------------------------------- #
+# rows past this length are searched in chunks of it: a join of 2^31
+# pairs a slot would pass torch's 32-bit indexing in one scan or search
+FIRST_TRUE_CHUNK = 1 << 30
+
+
 def first_true(mask: torch.Tensor, size: int) -> torch.Tensor:
     """Per row of ``mask`` [S, N]: the ascending indices of its first
     ``size`` True entries, -1 filled -> int64 [S, size].  The image of
-    ``jnp.nonzero(row, size=size, fill_value=-1)``."""
+    ``jnp.nonzero(row, size=size, fill_value=-1)``.  A row longer than
+    ``FIRST_TRUE_CHUNK`` is scanned chunk by chunk (each a contiguous
+    1-D scan): rank k lies in the chunk where the running total first
+    reaches k, at the rank less the totals of the chunks before it."""
     s, n = mask.shape
-    c = torch.cumsum(mask, dim=1, dtype=I32)
-    k = torch.arange(1, size + 1, dtype=I32, device=mask.device)
-    pos = torch.searchsorted(c, k.expand(s, size).contiguous())
-    return torch.where(pos < n, pos, torch.full_like(pos, -1))
+    dev = mask.device
+    if n <= FIRST_TRUE_CHUNK:
+        c = torch.cumsum(mask, dim=1, dtype=I32)
+        k = torch.arange(1, size + 1, dtype=I32, device=dev)
+        pos = torch.searchsorted(c, k.expand(s, size).contiguous())
+        return torch.where(pos < n, pos, torch.full_like(pos, -1))
+    w = FIRST_TRUE_CHUNK
+    k = torch.arange(1, size + 1, device=dev)
+    out = []
+    for r in range(s):
+        res = torch.full((size,), -1, dtype=torch.int64, device=dev)
+        before = torch.zeros((), dtype=torch.int64, device=dev)
+        for lo in range(0, n, w):
+            c = torch.cumsum(mask[r, lo:lo + w], dim=0, dtype=I32)
+            pos = torch.searchsorted(c, (k - before).clamp(0, w + 1).to(I32))
+            after = before + c[-1]
+            res = torch.where((k > before) & (k <= after), lo + pos, res)
+            before = after
+        out.append(res)
+    return torch.stack(out)
 
 
 def as_window(window, n_slots: int, device) -> torch.Tensor | None:
@@ -158,15 +182,16 @@ def extract_pairs(mask: torch.Tensor, max_new: int):
     ``max_new`` are counted as dropped (overflow).
     """
     s, ca, cb = mask.shape
-    if ca * cb >= 2**31:
-        raise ValueError(f"{ca} x {cb} pairs overflow the int32 counts")
+    if ca * cb - max_new >= 2**31:
+        raise ValueError(f"{ca} x {cb} pairs, less max_new {max_new}, "
+                         "overflow the int32 n_dropped")
     flat = mask.reshape(s, -1)
-    n_true = flat.sum(dim=1, dtype=I32)
+    n_true = flat.sum(dim=1)                    # int64: may reach 2^31
     idx = first_true(flat, max_new)
     pair_valid = idx >= 0
     safe = idx.clamp(min=0)
     cb = max(cb, 1)
-    n_dropped = (n_true - max_new).clamp(min=0)
+    n_dropped = (n_true - max_new).clamp(min=0).to(I32)
     return safe // cb, safe % cb, pair_valid, n_dropped
 
 

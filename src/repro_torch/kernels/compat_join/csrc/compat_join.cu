@@ -656,8 +656,12 @@ cj_scan(const int32_t* __restrict__ counts, int32_t* __restrict__ offsets,
     run += ws[0];
     __syncthreads();
   }
-  // the fill past min(total, max_new), cut into one share per A tile
-  const long long kept = min(tot, max_new);
+  // the fill past min(total, max_new), cut into one share per A tile.  The
+  // total and the offsets are read as unsigned: a slot's pair total reaches
+  // CA * CB, which the plan bounds by 2^31 - 1 + max_new (so that n_dropped
+  // fits an int32), and the int32 sums above are exact modulo 2^32
+  const uint32_t utot = (uint32_t)tot;
+  const long long kept = min((long long)utot, (long long)max_new);
   const long long per = ((long long)max_new + nrt - 1) / nrt;
   const long long lo = max((long long)rt * per, kept);
   const long long hi = min((long long)(rt + 1) * per, (long long)max_new);
@@ -669,7 +673,9 @@ cj_scan(const int32_t* __restrict__ counts, int32_t* __restrict__ offsets,
     bo[i] = 0;
     vo[i] = 0;
   }
-  if (rt == 0 && tid == 0) n_dropped[s] = tot > max_new ? tot - max_new : 0;
+  if (rt == 0 && tid == 0)
+    n_dropped[s] = utot > (uint32_t)max_new
+                       ? (int32_t)(utot - (uint32_t)max_new) : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -698,7 +704,7 @@ cj_emit(const __grid_constant__ CJArgs p, const int32_t* __restrict__ counts,
       a_lo, a_hi,
       [&](int a) {
         const long long i = cell0 + a * nt;
-        return counts[i] > 0 && offsets[i] < max_new;
+        return counts[i] > 0 && (uint32_t)offsets[i] < (uint32_t)max_new;
       },
       [&](int a, int k) { put_row(p, s, a, at, k); }, [](int) {}, rows,
       red);
@@ -981,7 +987,8 @@ static int make_args(CJArgs* p, const long long* P, int n_fields, int kind,
                                     (int)neb, (int)tb, (int)at);
   if (P[P_SMEM] != smem || smem > 232448) return bad;
   if (kind == KIND_PAIRS) {
-    if (ca * cb >= (1LL << 31)) return bad;
+    // a slot's pair total may reach CA * CB; n_dropped must fit an int32
+    if (ca * cb - P[P_MAX_NEW] >= (1LL << 31)) return bad;
     if (P[P_SCRATCH] != 2 * S * ca * P[P_NT] + S * P[P_NRT] * P[P_NT])
       return bad;
   }

@@ -137,8 +137,9 @@ def plan(kind: int, n_slots: int, ca: int, cb: int, nva: int, nvb: int,
         raise ValueError(f"tables of {ca} x {cb} rows: need 1 .. 2^31 - 1")
     if not 0 <= max_new < 2**31:
         raise ValueError(f"max_new {max_new} out of range")
-    if kind == PAIRS and ca * cb >= 2**31:
-        raise ValueError(f"{ca} x {cb} pairs overflow the int32 counts")
+    if kind == PAIRS and ca * cb - max_new >= 2**31:
+        raise ValueError(f"{ca} x {cb} pairs, less max_new {max_new}, "
+                         "overflow the int32 n_dropped")
     shape = SHAPES.index(dims) if dims in SHAPES else RUNTIME_DIMS
     r = ROWS_PER_WARP if shape < RUNTIME_DIMS else 1
     tb = next((t for t in TILE_COLS

@@ -14,8 +14,9 @@ reconnects (``repro_torch.stream.ingest``) consume the same policy.
 Delays are deterministic given an ``rng`` (jitter draws from it), and
 ``sleep`` is injectable, so tests can pin schedules.
 
-``mesh``/``specs`` (a restore onto a capacity-sharded layout) raise
-``NotImplementedError`` until the capacity-sharding slice of the port.
+With ``mesh``/``specs`` a restore places the state onto that mesh
+(``restore_checkpoint(..., mesh, specs)``): a capacity-sharded engine
+state comes back at the shard count it was written with.
 """
 
 from __future__ import annotations
@@ -93,10 +94,9 @@ class FaultTolerantLoop:
         mesh=None,
         specs=None,
     ):
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "a sharded restore (mesh=/specs=) belongs to the "
-                "capacity-sharding slice of the port")
+        if (mesh is None) != (specs is None):
+            raise ValueError("FaultTolerantLoop needs both mesh= and "
+                             "specs=, or neither")
         self.ckpt_dir = ckpt_dir
         self.step_fn = step_fn
         self.make_init_state = make_init_state

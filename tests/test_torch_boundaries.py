@@ -10,8 +10,9 @@ refuses.
   on CPU tensors, without a launch; ``backend="cuda"`` with CPU tensors
   raises, and nothing falls back.
 * ``JoinBackend.CUDA`` with CPU tensors raises; nothing falls back.
-* What a later slice ports raises ``NotImplementedError``; what this
-  slice serves (replica sharding, sharded checkpoints) runs.
+* What a later item ports (a mesh of distinct devices) raises
+  ``NotImplementedError``; what the port serves (replica and capacity
+  sharding, sharded checkpoints, restores onto a mesh) runs.
 * ``chip_smoke.py`` without a card, or alone in a directory, exits
   non-zero and prints no result.
 """
@@ -114,9 +115,11 @@ def _plan():
     "batch_to_device", "graph_to_device", "params_from_numpy",
     "shared_service", "init_node_state", "stream_session", "stream_server",
     "service_restore", "session_frontier", "service_frontier",
-    "session_restore_ingest", "sharded_service", "mesh_session"])
+    "session_restore_ingest", "sharded_service", "mesh_session",
+    "make_mesh", "sharded_tick"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
+    from repro_torch.core.distributed import build_sharded_tick, make_mesh
     from repro_torch.core.share import init_node_state, node_spec
     from repro_torch.launch.stream_serve import StreamServer
     from repro_torch.runtime.mesh import ShardedSearchService
@@ -146,7 +149,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         sess.register_query(plan.query, plan.window)
         sess.serve_frontier(frontier(), ckpt_every=1)
         sess.service.ckpt.wait()
+    def mesh(device=None):        # a mesh takes its devices, repeated
+        return make_mesh((2,), ("data",), devices=None if device is None
+                         else (device,) * 2)
+
     calls = {
+        "make_mesh": mesh,
+        "sharded_tick": lambda **kw: build_sharded_tick(plan, mesh(**kw)),
         "sharded_service": lambda **kw: ShardedSearchService(**kw),
         "mesh_session": lambda **kw: StreamSession(mesh=2, **kw),
         "session_frontier": lambda **kw: serve_session(StreamSession(**kw)),
@@ -231,28 +240,36 @@ def test_cuda_backend_with_cpu_tensors_raises():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """The capacity-sharding slice: sharding one engine's capacity axis
-    (``axis_name``/``n_shards``), placing a checkpoint onto a
-    capacity-sharded layout (``restore_checkpoint(mesh=, specs=)``,
-    ``reshard``) and a sharded restore in ``FaultTolerantLoop`` raise."""
+    """The capacity-sharding slice runs on a mesh of one device (repeats
+    allowed): sharding one engine's capacity axis (``axis_name``/
+    ``n_shards``), placing a checkpoint onto the mesh
+    (``restore_checkpoint(mesh=, specs=)``, ``reshard``) and a sharded
+    restore in ``FaultTolerantLoop``.  What is left to a later item — a
+    mesh of distinct devices — raises."""
     from repro_torch.checkpoint import (
         reshard,
         restore_checkpoint,
         save_checkpoint,
     )
+    from repro_torch.core.distributed import P, make_mesh
     from repro_torch.runtime.fault import FaultTolerantLoop
 
-    with pytest.raises(NotImplementedError):
-        engine.build_tick_body(_plan(), axis_name="data", n_shards=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        reshard({"a": torch.ones(2)}, object(), object())
+    mesh = make_mesh((2,), ("data",), devices=("cpu",) * 2)
+    body = engine.build_tick_body(_plan(), axis_name="data", n_shards=2)
+    assert callable(body)
+    specs = {"a": P("data")}
+    got = reshard({"a": torch.ones(2)}, mesh, specs)
+    assert got["a"].device == torch.device("cpu")
     save_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        restore_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)},
-                           mesh=object(), specs=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FaultTolerantLoop(str(tmp_path / "loop"), lambda s, i: s,
-                          lambda: 0, mesh=object())
+    got = restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(2)},
+                             mesh=mesh, specs=specs)
+    assert got["a"].tolist() == [1.0, 1.0]
+    loop = FaultTolerantLoop(str(tmp_path / "loop"), lambda s, i: s,
+                             lambda: {"a": torch.zeros(2)}, mesh=mesh,
+                             specs=specs)
+    assert loop.run(1)["a"].tolist() == [0.0, 0.0]
+    with pytest.raises(NotImplementedError, match="distinct"):
+        make_mesh((2,), ("data",), devices=("cpu", "meta"))
 
 
 def test_shared_prefix_depth_is_range_checked():

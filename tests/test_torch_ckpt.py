@@ -266,18 +266,24 @@ def test_missing_arrays_are_loud_schema_drift(tmp_path):
 
 
 def test_sharded_checkpoints_are_the_mesh_slice(tmp_path):
-    """Sharded files are written and read now; placing a restored tree
-    onto a capacity-sharded layout (``mesh=``/``specs=``, ``reshard``)
-    is the capacity-sharding slice and still raises."""
+    """Sharded files are written and read, and a restored tree is placed
+    onto a capacity-sharded mesh (``mesh=``/``specs=``, ``reshard``):
+    every leaf on the mesh's device in its global shape, each split axis
+    checked against the shard count."""
+    from repro_torch.core.distributed import P, make_mesh
+
     save_checkpoint(str(tmp_path), 1, {"a": torch.ones(4)}, n_shards=2)
     validate_checkpoint(str(tmp_path), 1)
     got = restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(4)})
     assert got["a"].tolist() == [1.0] * 4
-    with pytest.raises(NotImplementedError, match="mesh"):
-        restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(4)},
-                           mesh=object(), specs=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ckpt_mod.reshard({"a": torch.zeros(4)}, object(), object())
+    mesh = make_mesh((4,), ("data",), devices=("cpu",) * 4)
+    got = restore_checkpoint(str(tmp_path), 1, {"a": np.zeros(4)},
+                             mesh=mesh, specs={"a": P("data")})
+    assert torch.is_tensor(got["a"]) and got["a"].tolist() == [1.0] * 4
+    got = ckpt_mod.reshard({"a": torch.zeros(4)}, mesh, {"a": P()})
+    assert got["a"].shape == (4,)
+    with pytest.raises(ValueError, match="not divisible"):
+        ckpt_mod.reshard({"a": torch.zeros(6)}, mesh, {"a": P("data")})
 
 
 def _shard_tree():

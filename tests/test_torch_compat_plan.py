@@ -333,7 +333,8 @@ def test_launch_plan_serving_shapes():
     ((K.PAIRS, 1, 10, 10, 2, 2, 0, 1, ALL, False, 4), "maxima"),
     ((K.PAIRS, 0, 10, 10, 2, 2, 1, 1, ALL, False, 4), "n_slots"),
     ((K.MASK, 65536, 10, 10, 2, 2, 1, 1, ALL, False), "n_slots"),
-    ((K.PAIRS, 1, 65536, 32768, 2, 2, 1, 1, ALL, False, 4), "overflow"),
+    ((K.PAIRS, 1, 65536, 32769, 2, 2, 1, 1, ALL, False, 4), "overflow"),
+    ((K.PAIRS, 1, 65536, 32768, 2, 2, 1, 1, ALL, False, 0), "overflow"),
     ((K.MASK, 1, 1, 65535 * 1024 + 1, 2, 2, 1, 1, ALL, False), "grid"),
     ((K.PAIRS, 1, 0, 10, 2, 2, 1, 1, ALL, False, 4), "rows"),
     ((K.PAIRS, 1, 10, 10, 2, 2, 1, 1, ALL, False, -1), "max_new"),
@@ -341,6 +342,39 @@ def test_launch_plan_serving_shapes():
 def test_launch_plan_refuses(args, match):
     with pytest.raises(ValueError, match=match):
         K.plan(*args)
+
+
+def test_pair_plan_takes_2_31_pairs_when_max_new_covers_the_excess():
+    """A slot's pair total is read as unsigned: CA x CB may reach
+    2^31 - 1 + max_new, so that n_dropped still fits an int32 (a
+    capacity-sharded L0 join of 4 x 8192 gathered delta rows against a
+    65536-row shard is exactly 2^31 pairs)."""
+    p = K.plan(K.PAIRS, 4, 32768, 65536, 3, 3, 2, 2,
+               (False,) * 3 + (True,) * 3, True, 8192)
+    assert (p.sa_bind, p.sb_bind) == (0, 65536 * 3)
+    K.plan(K.PAIRS, 1, 65536, 32768 + 1, 2, 2, 1, 1, ALL, False, 65537)
+    from repro_torch.core.join import extract_pairs
+    with pytest.raises(ValueError, match="overflow"):      # not allocated
+        extract_pairs(torch.zeros((), dtype=torch.bool).expand(
+            1, 65536, 32769), 65536)
+
+
+@pytest.mark.parametrize("chunk", [4, 16, 64])
+def test_first_true_in_chunks_equals_one_scan(monkeypatch, chunk):
+    """Rows past ``FIRST_TRUE_CHUNK`` (2^30: a slot's 2^31 pairs) are
+    searched chunk by chunk; the answer is the one-scan answer."""
+    from repro_torch.core import join as J
+
+    gen = torch.Generator().manual_seed(chunk)
+    cases = [(n, p, size) for n in (1, 7, 100, 257)
+             for p in (0.0, 0.05, 0.5, 1.0) for size in (1, 5, 300)]
+    want = [J.first_true(torch.rand((3, n), generator=gen) < p, size)
+            for n, p, size in cases]
+    gen.manual_seed(chunk)
+    monkeypatch.setattr(J, "FIRST_TRUE_CHUNK", chunk)
+    for (n, p, size), w in zip(cases, want):
+        got = J.first_true(torch.rand((3, n), generator=gen) < p, size)
+        assert torch.equal(got, w), (n, p, size)
 
 
 def test_mask_plan_takes_more_than_2_31_pairs():

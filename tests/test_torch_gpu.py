@@ -774,3 +774,113 @@ def test_mesh_on_card_equals_single_device_service(cuda, n_replicas, spr,
         s.serve_stream(stream[2048:], **kw)
     for qid in single.registry.qids():
         assert back.matches(qid) == single.matches(qid) == re.matches(qid)
+
+
+def _match_rows(res):
+    from collections import Counter
+
+    valid = res.match_valid.cpu().numpy()
+    bind = res.match_bindings.cpu().numpy()[valid]
+    ets = res.match_ets.cpu().numpy()[valid]
+    return Counter(tuple(map(int, b)) + tuple(map(int, e))
+                   for b, e in zip(bind, ets))
+
+
+def test_sharded_tick_on_card_equals_unsharded(cuda):
+    """Capacity sharding on the card (2 logical shards on one device, the
+    CUDA pair kernel at S = 2): per tick the unsharded CUDA tick's match
+    count and rows, no overflow; the shard-aware fold of the final state
+    equals the unsharded current matches; a REF sharded run is
+    identical, leaf for leaf."""
+    from repro_torch.core.distributed import (
+        _sharded_current_matches,
+        build_sharded_tick,
+        make_mesh,
+    )
+    from repro_torch.core.engine import build_tick, current_matches
+    from repro_torch.core.state import init_state
+
+    chain = QueryGraph(4, (0, 1, 2, 0), ((0, 1), (1, 2), (2, 3)),
+                       prec=frozenset({(0, 1), (1, 2)}))
+    two = QueryGraph(5, (0, 0, 1, 0, 1), ((0, 1), (1, 2), (0, 3), (3, 4)),
+                     prec=frozenset({(0, 1), (2, 3)}))
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=480, n_vertices=12, n_vertex_labels=3, n_edge_labels=2,
+        seed=5, ts_step_max=2))
+    mesh = make_mesh((2,), ("data",), devices=("cuda",) * 2)
+    for query in (chain, two):
+        plan = compile_plan(query, 35, level_capacity=1024,
+                            l0_capacity=1024, max_new=256)
+        t1, s1 = build_tick(plan, device=cuda), init_state(plan,
+                                                           device=cuda)
+        tc, sc = build_sharded_tick(plan, mesh, extract_matches=True)
+        tr, sr = build_sharded_tick(plan, mesh, backend="ref",
+                                    extract_matches=True)
+        before = dict(ops.compat_join_pairs.launches_by_slots)
+        total = 0
+        for batch in to_batches(stream, 32):
+            eb = make_batch(**batch, device=cuda)
+            s1, r1 = t1(s1, eb)
+            sc, rc = tc(sc, eb)
+            sr, _ = tr(sr, eb)
+            assert int(rc.n_new_matches) == int(r1.n_new_matches)
+            assert _match_rows(rc) == _match_rows(r1)
+            total += int(rc.n_new_matches)
+            for x, y in zip(_leaves(sc), _leaves(sr)):
+                assert torch.equal(x, y)
+        assert total > 0 and int(sc.stats.n_overflow) == 0
+        assert _sharded_current_matches(plan, sc, 2) == \
+            current_matches(plan, s1)
+        after = dict(ops.compat_join_pairs.launches_by_slots)
+        assert after.get(2, 0) > before.get(2, 0)
+
+
+@pytest.mark.parametrize("which", ["j1", "j2"])
+def test_gathered_delta_joins_equal_plain_version(cuda, which):
+    """The capacity phase's L0 joins at 4 shards of 65,536 rows: a
+    gathered delta of 4 x 8,192 rows shared by the shards (slot stride
+    0), as A (J1) or B (J2); each slot's A x B is 2^31 pairs."""
+    rng = np.random.default_rng(31)
+    rel = np.zeros((3, 3), bool)
+    rel[0, 0] = True
+    trel = np.zeros((2, 2), np.int8)
+
+    def t(x):
+        return torch.as_tensor(x, device=cuda)
+
+    def table(lead, rows, fill):
+        return (t(rng.integers(0, 3000, lead + (rows, 3), dtype=np.int32)),
+                t(np.sort(rng.integers(0, 30000, lead + (rows, 2),
+                                       dtype=np.int32), axis=-1)),
+                t(rng.random(lead + (rows,)) < fill))
+
+    delta, shards = table((), 4 * 8192, 0.5), table((4,), 65536, 0.2)
+    a, b = (delta, shards) if which == "j1" else (shards, delta)
+    win = t(rng.integers(3000, 9000, 4, dtype=np.int32))
+    got = ops.compat_join_pairs(*a, *b, rel, trel, 8192, win)
+    want = ref.compat_join_pairs(*a, *b, rel, trel, 8192, win)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) > 0
+
+
+def test_pair_kernel_counts_2_31_pairs(cuda):
+    """Every one of 32,768 x 65,536 = 2^31 pairs matches: the kernel keeps
+    the first max_new in row-major order and drops 2^31 - max_new, past
+    the int32 range of the total it sums."""
+    a = (torch.zeros((32768, 1), dtype=torch.int32, device=cuda),
+         torch.zeros((32768, 1), dtype=torch.int32, device=cuda),
+         torch.ones(32768, dtype=torch.bool, device=cuda))
+    b = (torch.ones((65536, 1), dtype=torch.int32, device=cuda),
+         torch.zeros((65536, 1), dtype=torch.int32, device=cuda),
+         torch.ones(65536, dtype=torch.bool, device=cuda))
+    rel, trel = np.zeros((1, 1), bool), np.zeros((1, 1), np.int8)
+    got = ops.compat_join_pairs(*a, *b, rel, trel, 4096)
+    torch.cuda.synchronize()
+    assert int(got[3][0]) == 2**31 - 4096
+    assert got[2].all() and int(got[0].max()) == 0
+    assert torch.equal(got[1][0], torch.arange(4096, device=cuda))
+    want = ref.compat_join_pairs(*a, *b, rel, trel, 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -313,8 +313,9 @@ def test_frontier_rejects_unknown_sources_callbacks_and_names():
 def test_fault_tolerant_loop_recovers_and_shares_retry_policy(tmp_path):
     """The port's loop: ``max_restarts`` maps onto a zero-delay
     ``RetryPolicy``; an injected failure restores the newest checkpoint
-    and replays to the uninterrupted result; ``mesh=`` is the mesh
-    slice."""
+    and replays to the uninterrupted result; with ``mesh=``/``specs=``
+    the restored state is placed onto the mesh (one of the two alone
+    raises)."""
     import torch
 
     loop = PORT.FaultTolerantLoop(str(tmp_path / "a"), lambda s, i: s,
@@ -340,9 +341,20 @@ def test_fault_tolerant_loop_recovers_and_shares_retry_policy(tmp_path):
     out = loop.run(10)
     assert torch.equal(out["x"], torch.full((3,), float(sum(range(10)))))
     assert loop.restarts == 1 and slept == [0.0]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PORT.FaultTolerantLoop(str(tmp_path / "d"), step, lambda: 0,
-                               mesh=object())
+    from repro_torch.core.distributed import P, make_mesh
+
+    mesh = make_mesh((3,), ("data",), devices=("cpu",) * 3)
+    failed.clear()
+    loop = PORT.FaultTolerantLoop(
+        str(tmp_path / "d"), step, lambda: {"x": torch.zeros(3)},
+        ckpt_every=3, sleep=slept.append, mesh=mesh,
+        specs={"x": P("data")})
+    out = loop.run(10)
+    assert torch.equal(out["x"], torch.full((3,), float(sum(range(10)))))
+    assert loop.restarts == 1
+    with pytest.raises(ValueError, match="mesh"):
+        PORT.FaultTolerantLoop(str(tmp_path / "e"), step, lambda: 0,
+                               mesh=mesh)
 
 
 # --------------------------------------------------------------------- #

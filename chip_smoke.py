@@ -10,6 +10,16 @@ exit, nothing is caught and skipped):
   device        the card's name and power limit (nvidia-smi) and torch's;
   build         nvcc builds every kernel library from its csrc/ source,
                 one nvcc per source, all at once (ptxas -v lines);
+  analysis      the static-analysis gate (repro_torch.analysis) on the
+                card: the tick-scope lint, the Hopper kernel contracts
+                over the full lattice and the plan invariants over
+                src/repro_torch, the baseline applied; the limits the
+                proofs assume read from the card (the shared memory a
+                block may opt into, the SM count) against the kernels'
+                constants; KC105's card half (each of the four launch
+                wrappers against its plain version, one real call at the
+                lattice's small points); any error, any warning the
+                baseline does not cover or any limit mismatch fails;
   kernel_cases  the compat-join pair kernel against its plain version at
                 the serving path's join shapes, over a slot group of 8,
                 at S = 1 and at S = 4 (a mesh replica block), and the
@@ -287,6 +297,40 @@ def phase_build():
          "ptxas": [ln for ln in _build.build_logs.get(src.name, "")
                    .splitlines() if ln.strip()]}
         for name, src, path in zip(KERNEL_SOURCES, sources, paths)]})
+
+
+def phase_analysis():
+    """``repro_torch.analysis`` over the port's tree (full lattice, the
+    plan pass included), the card's limits and KC105 on the card."""
+    from repro_torch.analysis import kernel_check as KC
+    from repro_torch.analysis.cli import run_passes
+    from repro_torch.analysis.findings import ERROR, WARNING, load_baseline
+
+    t0 = time.perf_counter()
+    limits = KC.device_limits(0)
+    report = run_passes(os.path.join(HERE, "src", "repro_torch"))
+    report = report.split_by_baseline(load_baseline(
+        os.path.join(HERE, "analysis_baseline_torch.json")))
+    t1 = time.perf_counter()
+    on_card = KC.check_kernel_ref_agreement(fast=False, device="cuda")
+    mismatched = KC.check_device_limits(limits)
+    t2 = time.perf_counter()
+    by_sev = report.by_severity()
+    emit({"phase": "analysis", "seconds": t2 - t0,
+          "passes_seconds": t1 - t0, "card_checks_seconds": t2 - t1,
+          "stats": report.stats, "findings_by_severity": by_sev,
+          "baselined": [f"{f.rule} {f.symbol}" for f in report.suppressed],
+          "device_limits": limits,
+          "kc105_on_card": [f.format() for f in on_card],
+          "limit_mismatches": [f.format() for f in mismatched]})
+    bad = [f for f in report.findings if f.severity in (ERROR, WARNING)]
+    for f in bad + on_card + mismatched:
+        print(f.format(), file=sys.stderr, flush=True)
+    if bad or on_card or mismatched:
+        fail(f"analysis: {by_sev[ERROR]} error(s), {by_sev[WARNING]} "
+             f"warning(s) outside the baseline, {len(on_card)} KC105 "
+             f"finding(s) on the card, {len(mismatched)} limit "
+             f"mismatch(es)")
 
 
 # --------------------------------------------------------------------- #
@@ -2883,6 +2927,7 @@ def main(argv=None) -> int:
 
     dev = phase_device(torch)
     phase_build()
+    phase_analysis()
     cases, worst = phase_kernels(torch, args.seed)
     masks, mask_launches = phase_masks(torch, args.seed)
     stream = make_stream(args.seed, args.ticks * BATCH)

@@ -974,6 +974,9 @@ static int make_args(CJArgs* p, const long long* P, int n_fields, int kind,
     return bad;
   if (tb < CJ_WIN || tb % CJ_WIN || at < 16 || at % 16)
     return bad;
+  // the emit's cursor (below max_new) plus a cell's matches (at most tb)
+  // stays an int
+  if (P[P_MAX_NEW] > (1LL << 31) - tb) return bad;
   if (P[P_NT] != (cb + tb - 1) / tb || P[P_NRT] != (ca + at - 1) / at ||
       P[P_NT] > 65535 || P[P_NRT] >= (1LL << 31))
     return bad;

@@ -39,6 +39,9 @@ A_TILE_BYTES_MAX = 32_768      # staged A rows beyond this take fewer rows
 TILE_COLS = (1024, 512)    # B tile widths, widest first
 TILE_BYTES_MAX = 65_536    # a staged B tile beyond this takes the narrower
 SMEM_LIMIT = 232_448   # dynamic shared memory a block may have on an H100
+# the emit's cursor plus one cell's matches (at most a tile's columns)
+# must stay an int
+MAX_NEW_LIMIT = 2**31 - TILE_COLS[0]
 SPEC_WORDS = 35        # CJ_SPEC_WORDS
 PAIRS, MASK = 0, 1     # the source's KIND_* enum
 
@@ -135,8 +138,9 @@ def plan(kind: int, n_slots: int, ca: int, cb: int, nva: int, nvb: int,
         raise ValueError(f"n_slots {n_slots} out of range")
     if not (0 < ca < 2**31 and 0 < cb < 2**31):
         raise ValueError(f"tables of {ca} x {cb} rows: need 1 .. 2^31 - 1")
-    if not 0 <= max_new < 2**31:
-        raise ValueError(f"max_new {max_new} out of range")
+    if not 0 <= max_new <= MAX_NEW_LIMIT:
+        raise ValueError(f"max_new {max_new} out of range (0 .. "
+                         f"{MAX_NEW_LIMIT})")
     if kind == PAIRS and ca * cb - max_new >= 2**31:
         raise ValueError(f"{ca} x {cb} pairs, less max_new {max_new}, "
                          "overflow the int32 n_dropped")
@@ -282,6 +286,28 @@ def _launch_args(kind, tables, rel, trel, window, n_slots: int,
     return p, head, (tabs, window)
 
 
+def pairs_outputs(n_slots: int, max_new: int, device):
+    """The pair launch's outputs on ``device`` (any device, the meta
+    device included): ``(ab, small, (a_idx, b_idx, pair_valid,
+    n_dropped))``.  The kernels write through two buffers: ``ab``, int64
+    [2, S, max_new] (``a_idx`` and ``b_idx``), and ``small``, bytes
+    holding ``n_dropped`` (int32 [S]) then ``pair_valid`` (bool
+    [S, max_new])."""
+    ab = torch.empty((2, n_slots, max_new), dtype=torch.int64,
+                     device=device)
+    small = torch.empty(4 * n_slots + n_slots * max_new, dtype=torch.uint8,
+                        device=device)
+    a_idx, b_idx = ab.unbind(0)
+    n_dropped = small[:4 * n_slots].view(torch.int32)
+    pair_valid = small[4 * n_slots:].view(torch.bool).view(n_slots, max_new)
+    return ab, small, (a_idx, b_idx, pair_valid, n_dropped)
+
+
+def mask_output(n_slots: int, ca: int, cb: int, device):
+    """The mask launch's output on ``device``: bool [S, CA, CB]."""
+    return torch.empty((n_slots, ca, cb), dtype=torch.bool, device=device)
+
+
 def compat_join_pairs_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
                            rel, trel, max_new: int, window, n_slots: int):
     """Launch the pair kernels: returns ``(a_idx, b_idx, pair_valid,
@@ -295,21 +321,17 @@ def compat_join_pairs_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,
         PAIRS, (bind_a, ets_a, valid_a, bind_b, ets_b, valid_b), rel, trel,
         window, n_slots, max_new)
     dev = bind_a.device
-    sm = n_slots * max_new
-    ab = torch.empty((2, n_slots, max_new), dtype=torch.int64, device=dev)
-    small = torch.empty(4 * n_slots + sm, dtype=torch.uint8, device=dev)
+    ab, small, outs = pairs_outputs(n_slots, max_new, dev)
     scratch = torch.empty(p.scratch, dtype=torch.int32, device=dev)
     ptr = ab.data_ptr()
     err = _build.load(SOURCE, _bind).compat_join_pairs_launch(
-        *head, ptr, ptr + 8 * sm, small.data_ptr() + 4 * n_slots,
-        small.data_ptr(), scratch.data_ptr(), _build.stream_of(ab))
+        *head, ptr, ptr + 8 * n_slots * max_new,
+        small.data_ptr() + 4 * n_slots, small.data_ptr(), scratch.data_ptr(),
+        _build.stream_of(ab))
     if err != 0:
         raise RuntimeError(f"compat_join_pairs launch failed: CUDA error "
                            f"{err}")
-    a_idx, b_idx = ab.unbind(0)
-    n_dropped = small[:4 * n_slots].view(torch.int32)
-    pair_valid = small[4 * n_slots:].view(torch.bool).view(n_slots, max_new)
-    return a_idx, b_idx, pair_valid, n_dropped
+    return outs
 
 
 def compat_mask_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel,
@@ -321,8 +343,7 @@ def compat_mask_cuda(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b, rel,
     p, head, _keep = _launch_args(
         MASK, (bind_a, ets_a, valid_a, bind_b, ets_b, valid_b), rel, trel,
         window, n_slots)
-    out = torch.empty((n_slots, p.ca, p.cb), dtype=torch.bool,
-                      device=bind_a.device)
+    out = mask_output(n_slots, p.ca, p.cb, bind_a.device)
     err = _build.load(SOURCE, _bind).compat_mask_launch(
         *head, out.data_ptr(), _build.stream_of(out))
     if err != 0:

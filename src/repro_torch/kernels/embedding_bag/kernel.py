@@ -105,6 +105,12 @@ def _refuse(ids, bags, table, n_bags):
                      f"{table.shape[1]} out of the kernel's int32 range")
 
 
+def bag_output(table, n_bags: int):
+    """The launch's output beside ``table`` [V, D] (on any device, the
+    meta device included): [n_bags, D] in the table's dtype."""
+    return table.new_empty(n_bags, table.shape[1])
+
+
 def embedding_bag_cuda(ids, bags, table, n_bags: int):
     """Launch the kernel: ids, bags int32 CUDA [T] (bags sorted
     ascending, not checked), table float32/bfloat16 CUDA [V, D] ->
@@ -126,7 +132,7 @@ def embedding_bag_cuda(ids, bags, table, n_bags: int):
     v, d = table.shape
     ptr = table.data_ptr()
     p = plan(ids.shape[0], n_bags, v, d, table.element_size(), ptr % 16)
-    out = table.new_empty(n_bags, d)
+    out = bag_output(table, n_bags)
     err = _build.load(SOURCE, _bind).embedding_bag_launch(
         ids.data_ptr(), bags.data_ptr(), ptr, out.data_ptr(), p.c_args,
         len(PLAN_FIELDS), _build.stream_of(table))

@@ -133,6 +133,12 @@ def _bind(lib) -> None:
     lib.segment_sum_launch.restype = ctypes.c_int
 
 
+def sum_output(msg, n_nodes: int):
+    """The launch's output beside ``msg`` [E, D] (on any device, the
+    meta device included): [n_nodes, D] in msg's dtype."""
+    return msg.new_empty((n_nodes, msg.shape[1]))
+
+
 def segment_sum_cuda(dst, msg, n_nodes: int):
     """Launch the kernels: dst int32 CUDA [E], msg float32/bfloat16 CUDA
     [E, D] -> [n_nodes, D] in msg's dtype, summed in float32.  Raises on
@@ -151,7 +157,7 @@ def segment_sum_cuda(dst, msg, n_nodes: int):
                          "kernel's int32 range")
     dst, msg = dst.contiguous(), msg.contiguous()
     p = plan(e, n_nodes, d, msg.element_size(), msg.data_ptr() % 16)
-    out = torch.empty((n_nodes, d), dtype=msg.dtype, device=msg.device)
+    out = sum_output(msg, n_nodes)
     ws = torch.empty((p.ws_bytes,), dtype=torch.uint8, device=msg.device)
     err = _build.load(SOURCE, _bind).segment_sum_launch(
         dst.data_ptr(), msg.data_ptr(), out.data_ptr(), ws.data_ptr(),

@@ -68,7 +68,8 @@ MODULES = [
     "repro_torch.launch.stream_serve", "repro_torch.stream",
     "repro_torch.stream.ingest", "repro_torch.stream.chaos",
     "repro_torch.runtime", "repro_torch.runtime.fault",
-    "repro_torch.runtime.mesh",
+    "repro_torch.runtime.mesh", "repro_torch.analysis.ast_lint",
+    "repro_torch.analysis.kernel_check", "repro_torch.analysis.cli",
 ]
 
 

@@ -884,3 +884,18 @@ def test_pair_kernel_counts_2_31_pairs(cuda):
     want = ref.compat_join_pairs(*a, *b, rel, trel, 4096)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_analysis_kernel_routes_and_device_limits_on_card(cuda):
+    """The card half of the kernel pass's KC105: each launch wrapper
+    against its plain version, one real call at the lattice's small
+    points (equal trees, equal values); and the limits the contracts
+    assume (a block's shared memory, the SM count the grids are sized
+    for) equal the card's, as on an H100."""
+    from repro_torch.analysis import kernel_check as KC
+
+    assert [f.format() for f in KC.check_kernel_ref_agreement(
+        fast=True, device=cuda)] == []
+    limits = KC.device_limits(0)
+    assert limits["sm_count"] > 0 and limits["smem_per_block_optin"] > 0
+    assert [f.format() for f in KC.check_device_limits(limits)] == []

@@ -171,6 +171,33 @@ def test_the_walk_reaches_the_repaired_callables():
     assert params["ckpt_dir"].kind == kw_only
 
 
+ANALYSIS_CALLABLES = [
+    ("analysis.ast_lint", "lint_tree"),
+    ("analysis.kernel_check", "check_kernels"),
+    ("analysis.cli", "run_passes"),
+    ("analysis.cli", "main"),
+    ("analysis.findings", "load_baseline"),
+    ("analysis.findings", "Baseline"),
+    ("analysis.findings", "Report"),
+]
+
+
+@pytest.mark.parametrize("rel,name", ANALYSIS_CALLABLES,
+                         ids=[f"{r}.{n}" for r, n in ANALYSIS_CALLABLES])
+def test_analysis_gate_has_the_reference_signatures(rel, name):
+    """The static-analysis gate's entry points take the reference's
+    parameters, in its order, with its defaults (the CLI's ``root`` is
+    the port's own tree)."""
+    ref = inspect.signature(getattr(
+        importlib.import_module(f"repro.{rel}"), name))
+    port = inspect.signature(getattr(
+        importlib.import_module(f"repro_torch.{rel}"), name))
+    assert [(p.name, p.kind, p.default) for p in port.parameters.values()] \
+        == [(p.name, p.kind, p.default) for p in ref.parameters.values()]
+    assert (rel, name) in {(r, n) for r in SHARED_MODULES
+                           for n, _, _ in shared_callables(r)}
+
+
 def test_a_shifted_slot_is_caught():
     """The check itself: the seed's order (``device`` in the reference's
     ``prefix_depth`` slot) is reported, a trailing keyword-only device

@@ -140,17 +140,42 @@ exit, nothing is caught and skipped):
                 each of serve_p99 and serve_bulk; logits held against
                 the plain version; one top-100 retrieval of 1M;
   segment_sum_cases  the segment_sum kernel against its plain version at
-                the GIN path's shapes on an ogbn-products-shaped graph,
-                the same later-layer messages with uniform dst (no hubs)
-                and segment_mean's D = 1 count column, with index_add_'s
+                the GNN paths' shapes on an ogbn-products-shaped graph
+                (GIN's layers, GAT's two layers, PNA's 75 columns, and
+                NequIP's l = 0/1/2 sums over the molecule batch), the
+                same later-layer messages with uniform dst (no hubs) and
+                segment_mean's D = 1 count column, with index_add_'s
                 time beside it and each case's device time by kernel;
   gin_infer     GIN (gin-tu, bf16) inference on that graph; logits held
-                against the plain-version forward.
+                against the plain-version forward;
+  gat_infer     GAT (gat-cora) at the published Cora shape in float32,
+                held per element to the plain forward within the
+                summation bound, and on the products graph at the
+                reference cell's rule (100 features, 47 classes, bf16):
+                forward times, peak memory, logits against the plain
+                forward (both in deterministic mode: the bf16 softmax's
+                atomics alone move the logits run to run, by an amount
+                recorded beside) and the bf16 softmax's weight sums at
+                the hubs;
+  pna_infer     PNA (pna config, bf16) on the products graph: forward
+                times, peak memory, logits against the plain forward,
+                one forward's device time by aten op (scatter_reduce_);
+  nequip_infer  NequIP (nequip config, float32) energy and forces on the
+                molecule shape (128 molecules of 30 atoms and 64 edges,
+                made from --seed): the forces' gradient flows back
+                through the kernel's autograd.Function; energies and
+                forces against the plain version, rotation and
+                translation;
+  minibatch_infer  the ported neighbour sampler on the products graph
+                (1,024 seeds, fanout 15-10: minibatch_lg's sampling; the
+                cut is printed), host CSR and sampling times, GAT and PNA
+                over the subgraph against the plain forward.
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
 each capacity run, each mask case's entry-point call, recsys_serve,
-gin_infer).  Then a {"kernels": [...]}
+gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
+each model of minibatch_infer).  Then a {"kernels": [...]}
 line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
@@ -206,10 +231,15 @@ WD_BATCHES = 20
 RETRIEVAL_CANDIDATES, RETRIEVAL_TOPK = 1_000_000, 100
 GIN_NODES, GIN_DEGREE = 2_449_029, 25
 GIN_FEAT, GIN_CLASSES = 100, 47
-GIN_FORWARDS = 3
+GNN_FORWARDS = 3         # timed forwards of each GNN inference phase
+NEQUIP_CALLS = 5
+MINIBATCH_SEEDS, MINIBATCH_FANOUTS = 1024, (15, 10)   # minibatch_lg
 # A segment_sum case past the kernel's PRIV_TILES x TN = 3,145,728 nodes,
 # where the edge walks take their device-atomic side.
 SEG_WIDE_NODES = 4_000_000
+# NequIP's molecule shape (gnn_shapes "molecule": 128 molecules of 30
+# atoms and 64 directed edges)
+MOL_BATCH, MOL_ATOMS, MOL_EDGES = 128, 30, 64
 PROFILED_TICKS = 8
 DEVICE = "cuda"
 
@@ -2617,28 +2647,72 @@ def make_products_graph(torch, seed: int):
     return g, info
 
 
-def _abs_sums(torch, dst, msg, n_nodes, chunk: int = 1 << 23):
+def _abs_sums(torch, dst, msg, n_nodes, chunk_elems: int = 1 << 28):
     """Per node, the float32 sum of |msg| over its edges (chunked over
-    edges to bound the float32 copy)."""
+    edges to bound the float32 copy to 1 GiB)."""
     seg = torch.where((dst >= 0) & (dst < n_nodes), dst, n_nodes).long()
     acc = torch.zeros((n_nodes + 1, msg.shape[1]), dtype=torch.float32,
                       device=msg.device)
+    chunk = max(1, chunk_elems // msg.shape[1])
     for lo in range(0, msg.shape[0], chunk):
         acc.index_add_(0, seg[lo:lo + chunk],
                        msg[lo:lo + chunk].float().abs())
     return acc[:n_nodes]
 
 
+def make_molecules(seed: int) -> dict:
+    """The ``molecule`` shape (configs/registry.py gnn_shapes: 128
+    molecules of 30 atoms and 64 directed edges) as numpy arrays, made
+    from ``seed``: each molecule a chain of atoms 1.5 A apart in random
+    directions, no two atoms closer than 1 A; its 64 edges drawn without
+    replacement among the ordered pairs of atoms within the cutoff
+    (5 A); species uniform over the config's 16.  Atom and edge blocks
+    follow molecule order; ``graph_ids`` names each atom's molecule."""
+    import numpy as np
+
+    from repro_torch.configs.nequip import CONFIG
+
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((MOL_BATCH, MOL_ATOMS, 3))
+    src, dst = [], []
+    for m in range(MOL_BATCH):
+        for i in range(1, MOL_ATOMS):
+            while True:
+                step = rng.standard_normal(3)
+                p = pos[m, i - 1] + 1.5 * step / np.linalg.norm(step)
+                if np.linalg.norm(pos[m, :i] - p, axis=-1).min() >= 1.0:
+                    break
+            pos[m, i] = p
+        d = np.linalg.norm(pos[m][:, None] - pos[m][None], axis=-1)
+        a, b = np.nonzero((d < CONFIG.cutoff) & (d > 0))
+        take = rng.choice(len(a), MOL_EDGES, replace=False)
+        src.append(a[take] + m * MOL_ATOMS)
+        dst.append(b[take] + m * MOL_ATOMS)
+    return {"species": rng.integers(0, CONFIG.n_species,
+                                    MOL_BATCH * MOL_ATOMS).astype(np.int32),
+            "pos": pos.reshape(-1, 3).astype(np.float32),
+            "edge_src": np.concatenate(src).astype(np.int32),
+            "edge_dst": np.concatenate(dst).astype(np.int32),
+            "graph_ids": np.repeat(np.arange(MOL_BATCH),
+                                   MOL_ATOMS).astype(np.int32),
+            "n_graphs": MOL_BATCH}
+
+
 def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
-    """The segment_sum kernel against its plain version at the GIN path's
-    shapes on the products graph: layer 1's messages (E x 100, bf16), a
-    later layer's (E x 64, bf16), E x 64 float32 messages of small
+    """The segment_sum kernel against its plain version at the GNN paths'
+    shapes on the products graph: GIN's layer 1 messages (E x 100, bf16)
+    and a later layer's (E x 64, bf16), E x 64 float32 messages of small
     integers, the later layer's messages with ``dst`` drawn uniformly
     from [0, N) instead (the same work without the Pareto hubs), the
     same messages with ``dst`` uniform over ``SEG_WIDE_NODES`` nodes
     (more tiles than ``PRIV_TILES``: the edge walks count with device
     atomics instead of shared-memory tile counters, the plan's other
-    side), and ``segment_mean``'s count column (E x 1 float32 ones).
+    side), ``segment_mean``'s count column (E x 1 float32 ones); GAT's
+    layer 1 (E x 8 heads x 8, bf16) and layer 2 (E x 8 heads x 47 =
+    376, bf16) and PNA's (E x 75 ReLU'd rows, bf16: 150-byte rows, the
+    plan's 2-byte loads); and NequIP's l = 0/1/2 sums (32, 96, 288
+    float32 columns of small integers) over the molecule batch's 8,192
+    edges into 3,840 atoms.
 
     Both versions sum in float32 in an order that the data decides (the
     kernel's bucket order, index_add_'s atomics), and a hub row sums
@@ -2649,7 +2723,13 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
     in-degree < 2^24) sum exactly in any order, so the float32 cases
     must equal the plain version element for element.  Library
     yardstick: ``index_add_`` into a float32 accumulator, on float32
-    messages.  Each case's device time is also broken down by kernel
+    messages; at GAT's layer 2 a float32 copy of the message (92 GB)
+    does not fit beside it, so there ``index_add_`` sums the bf16
+    message into a bf16 accumulator (``library_call`` says which).  The
+    plain version sums in float64, so beside the kernel's error each case
+    also gives the library call's (its result in the message dtype
+    against the plain version's: what float32 or bf16 atomics lose).
+    Each case's device time is also broken down by kernel
     (``torch.profiler``)."""
     from repro_torch.kernels.segment_reduce import kernel, ops, ref
 
@@ -2666,6 +2746,20 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
                             dtype=torch.int32)
     uniform_wide = torch.randint(0, SEG_WIDE_NODES, (e,), generator=gen,
                                  device=DEVICE, dtype=torch.int32)
+    mol = make_molecules(seed)
+    mol_dst = torch.as_tensor(mol["edge_dst"], device=DEVICE)
+    mol_n, mol_e = len(mol["species"]), len(mol["edge_dst"])
+
+    def rows(d, relu=False):           # N(0, 1) node rows [N, d] -> [E, d]
+        def make():
+            h = torch.randn((n_graph, d), generator=gen, device=DEVICE)
+            return (h.relu_() if relu else h).bfloat16()[src]
+        return make
+
+    def mol_ints(d):
+        return lambda: torch.randint(-4, 5, (mol_e, d), generator=gen,
+                                     device=DEVICE, dtype=torch.float32)
+
     specs = [
         ("gin_l1_bf16", n_graph, dst, lambda: g["x"].bfloat16()[src], 1e-2),
         ("gin_l2_bf16", n_graph, dst, lambda: h64.bfloat16()[src], 1e-2),
@@ -2675,10 +2769,17 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
         ("uniform_4m_nodes_d64_bf16", SEG_WIDE_NODES, uniform_wide,
          lambda: h64.bfloat16()[src], 1e-2),
         ("d1_counts", n_graph, dst,
-         lambda: torch.ones((e, 1), device=DEVICE), None)]
+         lambda: torch.ones((e, 1), device=DEVICE), None),
+        ("gat_l1_bf16", n_graph, dst, rows(64), 1e-2),
+        ("gat_l2_bf16", n_graph, dst, rows(376), 1e-2),
+        ("pna_bf16", n_graph, dst, rows(75, relu=True), 1e-2),
+        ("nequip_l0_f32", mol_n, mol_dst, mol_ints(32), None),
+        ("nequip_l1_f32", mol_n, mol_dst, mol_ints(96), None),
+        ("nequip_l2_f32", mol_n, mol_dst, mol_ints(288), None)]
     results = []
     for name, n, dst, make, rtol in specs:
         msg = make()
+        e = msg.shape[0]
         walk = "shared" if kernel.plan(
             e, n, msg.shape[1], msg.element_size(),
             msg.data_ptr() % 16).priv else "device"
@@ -2694,24 +2795,29 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
             bad = int((diff > 0).sum())
         else:
             deg = torch.bincount(dst[dst >= 0].long(), minlength=n)[:n, None]
-            tol = rtol * want.float().abs() \
-                + 2 * deg * 2.0**-24 * _abs_sums(torch, dst, msg, n)
+            tol = _abs_sums(torch, dst, msg, n).mul_(deg * 2.0**-23)
+            tol.add_(want.float().abs(), alpha=rtol)
             bad = int((diff > tol).sum())
             del tol, deg
         if got.dtype != msg.dtype or got.shape != want.shape or bad:
             fail(f"segment_sum case {name}: kernel != plain (max |err| "
                  f"{err}, {bad} elements out of tolerance)")
         del diff
+        seg = torch.where((dst >= 0) & (dst < n), dst, n).long()
+        wide = msg.numel() * 4 > 40e9           # no float32 copy beside it
+        lib_msg = msg if wide else msg.float()
+
+        def library():
+            return torch.zeros((n + 1, msg.shape[1]), dtype=lib_msg.dtype,
+                               device=DEVICE).index_add_(0, seg, lib_msg)
+
+        lib_out = library()[:n].to(msg.dtype)
+        lib_err = (_max_err(torch, lib_out, want), _rel_err(lib_out, want),
+                   _rel_err(got, want))
+        del got, want, lib_out
         ms = _time_ms(torch, lambda: ops.segment_sum(dst, msg, n), REPS)
         plain_ms = _time_ms(torch, lambda: ref.segment_sum(dst, msg, n),
                             REPS)
-        seg = torch.where((dst >= 0) & (dst < n), dst, n).long()
-        msg32 = msg.float()
-
-        def library():
-            return torch.zeros((n + 1, msg.shape[1]), device=DEVICE) \
-                .index_add_(0, seg, msg32)
-
         library_ms = _time_ms(torch, library, REPS)
         d = msg.shape[1]
         nbytes = 4 * e + e * d * msg.element_size() \
@@ -2721,49 +2827,47 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
             "case": name, "edges": e, "nodes": n, "dim": d,
             "dtype": str(msg.dtype).replace("torch.", ""), "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "index_add_ " + (
+                "bf16 message into bf16" if wide else "float32 into float32"),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "operations": e * d, "max_abs_err": err,
-            "tile_counters": walk,
+            "rel_err": lib_err[2], "library_max_abs_err": lib_err[0],
+            "library_rel_err": lib_err[1],
+            "tile_counters": walk, "load_bytes": kernel.plan(
+                e, n, d, msg.element_size(), msg.data_ptr() % 16).vec,
             "tolerance": ("equal" if rtol is None else
                           f"rtol {rtol} + 2 deg 2^-24 sum|msg|")}
         dev_ms, by_kernel, _ = _any_profile(
             torch, lambda: ops.segment_sum(dst, msg, n), 3)
         row.update(device_ms=dev_ms, device_ms_by_kernel=by_kernel)
         results.append(row)
-        del msg, msg32, seg, got, want
+        del msg, lib_msg, seg
         _free(torch)
     emit({"phase": "segment_sum_cases", "kernel": "segment_sum",
           "reps": REPS, "cases": results})
     return results
 
 
-def phase_gin_infer(torch, seed: int, g, graph_info):
-    """GIN inference at the gin-tu config (5 layers, 64 hidden) with the
-    products graph's widths (100 features, 47 classes), bf16 activations
-    as the reference's cell for that shape has them; random weights from
-    a seeded generator.  ``GIN_FORWARDS`` timed forwards after one
-    warm-up, the segment_sum launch count zeroed just before and read
-    just after.  The logits are held against the plain-version forward:
-    relative Frobenius error <= 1e-2 (bf16 activations, one rounding
-    per op; the kernel's float32 sums round to bf16 at other places)."""
-    import dataclasses
-
-    from repro_torch.configs.gin_tu import CONFIG
+def _infer(torch, model, g, forwards: int):
+    """One warm-up forward of ``model`` over ``g``, then ``forwards``
+    timed forwards (inference mode; host clock around each, ending in a
+    synchronise), the segment_sum launch count zeroed just before them
+    and read just after, the peak memory over all of them; then one
+    forward on the plain version (``backend = "ref"``) on the card.
+    Returns (logits, forward seconds, launches, peak GiB, plain logits,
+    plain seconds)."""
     from repro_torch.kernels.segment_reduce import ops
-    from repro_torch.models.gnn.models import GIN
 
-    cfg = dataclasses.replace(CONFIG, d_in=GIN_FEAT, n_classes=GIN_CLASSES,
-                              dtype=torch.bfloat16)
-    model = GIN(cfg, device=DEVICE, seed=seed)
     if model.backend != "cuda":
-        fail(f"GIN's default backend is {model.backend}, not cuda")
+        fail(f"{type(model).__name__}'s default backend is {model.backend}, "
+             "not cuda")
     _reset_peak(torch)
     with torch.inference_mode():
         model(g)                                     # warm-up, not counted
         _sync(torch)
         ops.segment_sum.launches = 0
         times = []
-        for _ in range(GIN_FORWARDS):
+        for _ in range(forwards):
             t0 = time.perf_counter()
             logits = model(g)
             _sync(torch)
@@ -2776,30 +2880,513 @@ def phase_gin_infer(torch, seed: int, g, graph_info):
         _sync(torch)
         plain_s = time.perf_counter() - t0
         model.backend = backend
+    return logits, times, launches, peak, want, plain_s
+
+
+def _rel_err(logits, want) -> float:
+    return float((logits.float() - want.float()).norm()
+                 / want.float().norm())
+
+
+def _infer_checks(torch, what, logits, want, shape, launches, expected):
+    """The error fields of ``logits`` against the plain forward's, and
+    what is wrong: logits not finite or not of ``shape``, the kernel not
+    launched ``expected`` times, a relative Frobenius error past 1e-2
+    (bf16 activations, one rounding per op; the kernel's float32 sums
+    and the plain version's float64 sums can round to neighbouring bf16
+    values, and GAT's bf16 softmax denominators are ``index_add_``
+    atomics, whose order changes from run to run)."""
+    rel = _rel_err(logits, want)
+    problems = []
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits)
+                                                .all()):
+        problems.append(f"{what} logits {tuple(logits.shape)} not finite "
+                        f"or not {shape}")
+    if launches != expected:
+        problems.append(f"{what} launched segment_sum {launches} times, "
+                        f"not {expected}")
+    if not rel <= 1e-2:
+        problems.append(f"{what} logits differ from the plain forward "
+                        f"(rel err {rel})")
+    return {"logits_rel_err": rel,
+            "logits_max_abs_err": _max_err(torch, logits, want),
+            "argmax_agreement": float((logits.argmax(1) == want.argmax(1))
+                                      .float().mean())}, problems
+
+
+def _products_cfg(torch, config):
+    """The reference's ogb_products cell rule (src/repro/launch/cells.py
+    _gnn_cell): the products widths (100 features, 47 classes) and bf16
+    activations on a full-graph-large shape."""
+    import dataclasses
+
+    return dataclasses.replace(config, d_in=GIN_FEAT, n_classes=GIN_CLASSES,
+                               dtype=torch.bfloat16)
+
+
+def phase_gin_infer(torch, seed: int, g, graph_info):
+    """GIN inference at the gin-tu config (5 layers, 64 hidden) with the
+    products graph's widths (100 features, 47 classes), bf16 activations
+    as the reference's cell for that shape has them; random weights from
+    a seeded generator.  ``GNN_FORWARDS`` timed forwards after one
+    warm-up, the segment_sum launch count zeroed just before and read
+    just after.  The logits are held against the plain-version forward:
+    relative Frobenius error <= 1e-2 (bf16 activations, one rounding
+    per op; the kernel's float32 sums round to bf16 at other places)."""
+    from repro_torch.configs.gin_tu import CONFIG
+    from repro_torch.models.gnn.models import GIN
+
+    cfg = _products_cfg(torch, CONFIG)
+    model = GIN(cfg, device=DEVICE, seed=seed)
+    logits, times, launches, peak, want, plain_s = _infer(
+        torch, model, g, GNN_FORWARDS)
     n = g["x"].shape[0]
-    if logits.shape != (n, GIN_CLASSES) \
-            or not bool(torch.isfinite(logits).all()):
-        fail(f"GIN logits {tuple(logits.shape)} not finite or of the wrong "
-             "shape")
-    rel = float((logits - want).norm() / want.norm())
     out = {"phase": "gin_infer", "config": cfg.name, "layers": cfg.n_layers,
            "hidden": cfg.d_hidden, "dtype": "bfloat16", **graph_info,
-           "forwards": GIN_FORWARDS, "forward_s": sorted(times),
+           "forwards": GNN_FORWARDS, "forward_s": sorted(times),
            "forward_s_median": _pctl(times, .5),
            "nodes_per_s": n / _pctl(times, .5),
            "edges_per_s": graph_info["edges"] / _pctl(times, .5),
            "plain_forward_s": plain_s, "segment_sum_launches": launches,
-           "logits_rel_err": rel,
-           "logits_max_abs_err": _max_err(torch, logits, want),
-           "argmax_agreement": float((logits.argmax(1) == want.argmax(1))
-                                     .float().mean()),
            "peak_mem_gib": peak}
+    fields, problems = _infer_checks(torch, "GIN", logits, want,
+                                     (n, GIN_CLASSES), launches,
+                                     cfg.n_layers * GNN_FORWARDS)
+    out.update(fields)
     emit(out)
-    if launches != cfg.n_layers * GIN_FORWARDS:
-        fail(f"GIN launched segment_sum {launches} times in "
-             f"{GIN_FORWARDS} forwards of {cfg.n_layers} layers")
-    if rel > 1e-2:
-        fail(f"GIN logits differ from the plain forward (rel err {rel})")
+    if problems:
+        fail("; ".join(problems))
+    return out, launches
+
+
+def _deterministic_pair(torch, model, g):
+    """GAT's forward through the kernel and on the plain version, both
+    under ``torch.use_deterministic_algorithms`` (warnings only): its
+    bf16 softmax denominators are ``index_add_`` atomics, whose order,
+    and so whose bf16 roundings, change from run to run (the reference's
+    semantics); deterministic, ``index_add_`` sums in a sorted order, so
+    the two forwards share their attention weights and differ only in
+    their segment sums.  Returns (kernel logits, plain logits)."""
+    import warnings
+
+    backend = model.backend
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(), torch.inference_mode():
+            warnings.simplefilter("ignore", UserWarning)
+            got = model(g)
+            model.backend = "ref"
+            want = model(g)
+            _sync(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        model.backend = backend
+    return got, want
+
+
+def _default_mode(torch, model, g, logits, want) -> dict:
+    """The timed forward's difference from the plain forward, both in the
+    default (atomic) mode, beside a second plain forward's: how far the
+    bf16 softmax's atomics alone move GAT's logits."""
+    with torch.inference_mode():
+        backend, model.backend = model.backend, "ref"
+        again = model(g)
+        model.backend = backend
+    return {"logits_rel_err": _rel_err(logits, want),
+            "plain_vs_plain_rel_err": _rel_err(again, want)}
+
+
+def _softmax_at_hubs(torch, seed: int, g):
+    """What the ported ``segment_softmax`` does in bf16 on this graph:
+    N(0, 1) scores [E, 8] in bf16 softmaxed over each node's in-edges;
+    the weights into a node should sum to 1.  Its denominators are
+    ``index_add_`` in bf16 (the reference's semantics too), which stops
+    growing once a sum's ulp passes twice the next term: the sums at the
+    largest hub and the worst node, beside the float32 softmax's."""
+    from repro_torch.models.gnn.message import segment_softmax
+
+    n = g["x"].shape[0]
+    dst = g["edge_dst"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    scores = torch.randn((dst.numel(), 8), generator=gen, device=DEVICE)
+    hub = int(torch.bincount(dst.long(), minlength=n).argmax())
+    out = {"hub": hub}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        alpha = segment_softmax(scores.to(dt), dst, n)
+        sums = torch.zeros((n, 8), device=DEVICE).index_add_(
+            0, dst.long(), alpha.float())
+        has = torch.bincount(dst.long(), minlength=n) > 0
+        out[f"{name}_alpha_sum_at_hub"] = [float(v) for v in sums[hub]]
+        out[f"{name}_alpha_sum_max"] = float(sums[has].max())
+        out[f"{name}_alpha_sum_min"] = float(sums[has].min())
+        del alpha, sums
+    del scores
+    _free(torch)
+    return out
+
+
+def phase_gat_infer(torch, seed: int, g, graph_info):
+    """GAT at the gat-cora config (2 layers, 8 hidden, 8 heads), random
+    weights from a seeded generator, two ways.
+
+    At the published Cora shape (``synth_cora_like``: 2,708 nodes,
+    10,556 edges, 1,433 features, 7 classes, float32), the logits held
+    per element against the plain-version forward on the card: its four
+    float32 segment sums (two softmax denominators by ``index_add_``'s
+    atomics, two message sums) run in other orders in the two forwards,
+    each within the recursive-summation bound 2 deg 2^-24 of its terms'
+    magnitudes, through unit-scale weights and 1-Lipschitz activations:
+    |err| <= 8 d_max 2^-24 max|logit|.
+
+    At the ``ogb_products`` shape with the reference cell's rule (100
+    features, 47 classes, bf16; ``_products_cfg``) on the products
+    graph: ``GNN_FORWARDS`` timed forwards after a warm-up, the peak
+    memory (layer 2's message h[src] * alpha alone is 61.2 M x 8 x 47
+    bf16 = 46.0 GB), the logits held to relative Frobenius error <= 1e-2
+    of the plain forward's (``_infer_checks``), both computed in
+    deterministic mode (``_deterministic_pair``: the bf16 softmax's
+    atomics alone move the default mode's logits by about that much,
+    ``default_mode`` records how far); and what the bf16 softmax does at
+    the graph's hubs (``_softmax_at_hubs``)."""
+    import numpy as np
+
+    from repro_torch.configs.gat_cora import CONFIG
+    from repro_torch.data.graphs import graph_to_device, synth_cora_like
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.models.gnn.models import GAT
+
+    cora = synth_cora_like(seed=seed)
+    d_max = int(np.bincount(cora["edge_dst"]).max())
+    cora = graph_to_device({k: cora[k] for k in ("x", "edge_src",
+                                                 "edge_dst")}, DEVICE)
+    model = GAT(CONFIG, device=DEVICE, seed=seed)
+    with torch.inference_mode():
+        model(cora)
+        _sync(torch)
+        ops.segment_sum.launches = 0
+        got = model(cora)
+        _sync(torch)
+        cora_launches = ops.segment_sum.launches
+        backend, model.backend = model.backend, "ref"
+        want = model(cora)
+        model.backend = backend
+    tol = 8 * d_max * 2.0**-24 * float(want.abs().max())
+    cora_err = _max_err(torch, got, want)
+    out = {"phase": "gat_infer", "config": CONFIG.name,
+           "layers": CONFIG.n_layers, "hidden": CONFIG.d_hidden,
+           "heads": CONFIG.n_heads,
+           "cora": {"nodes": cora["x"].shape[0],
+                    "edges": cora["edge_src"].numel(), "d_in": CONFIG.d_in,
+                    "classes": CONFIG.n_classes, "dtype": "float32",
+                    "max_in_degree": d_max,
+                    "segment_sum_launches": cora_launches,
+                    "logits_max_abs_err": cora_err, "tolerance": tol,
+                    "ms": _time_ms(torch, lambda: model(cora), REPS)}}
+    problems = []
+    if got.shape != (cora["x"].shape[0], CONFIG.n_classes) \
+            or not bool(torch.isfinite(got).all()) or cora_err > tol:
+        problems.append(f"GAT at Cora: logits {tuple(got.shape)} differ "
+                        f"from the plain forward by {cora_err} (tolerance "
+                        f"{tol})")
+    if cora_launches != CONFIG.n_layers:
+        problems.append(f"GAT at Cora launched segment_sum {cora_launches} "
+                        "times")
+    del model, cora, got, want
+    cfg = _products_cfg(torch, CONFIG)
+    model = GAT(cfg, device=DEVICE, seed=seed)
+    logits, times, launches, peak, want, plain_s = _infer(
+        torch, model, g, GNN_FORWARDS)
+    n = g["x"].shape[0]
+    out["products"] = {
+        **graph_info, "d_in": cfg.d_in, "classes": cfg.n_classes,
+        "dtype": "bfloat16", "forwards": GNN_FORWARDS,
+        "forward_s": sorted(times), "forward_s_median": _pctl(times, .5),
+        "nodes_per_s": n / _pctl(times, .5),
+        "edges_per_s": graph_info["edges"] / _pctl(times, .5),
+        "plain_forward_s": plain_s, "segment_sum_launches": launches,
+        "peak_mem_gib": peak}
+    out["products"]["default_mode"] = _default_mode(torch, model, g, logits,
+                                                    want)
+    del logits, want
+    got, want = _deterministic_pair(torch, model, g)
+    fields, more = _infer_checks(torch, "GAT", got, want,
+                                 (n, GIN_CLASSES), launches,
+                                 cfg.n_layers * GNN_FORWARDS)
+    out["products"].update(fields)
+    del model, got, want
+    _free(torch)
+    out["softmax_at_hubs"] = _softmax_at_hubs(torch, seed, g)
+    emit(out)
+    if problems + more:
+        fail("; ".join(problems + more))
+    return out, cora_launches, launches
+
+
+def _op_device_ms(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (taken again, at most
+    ``PROFILE_TRIES`` windows, while a window catches no device time):
+    the device time of its kernels, of the segment_sum kernel's (sr_*),
+    and under each aten op (children included) for the eight largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+        if sum(_dev_us(e) for e in kernels):
+            break
+        time.sleep(0.1 * tries)
+    ops = sorted(((e.key, getattr(e, "device_time_total",
+                                  getattr(e, "cuda_time_total", 0)))
+                  for e in ev if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")), key=lambda kv: -kv[1])
+    return {"device_ms": sum(_dev_us(e) for e in kernels) / 1e3,
+            "segment_sum_kernel_ms": sum(
+                _dev_us(e) for e in kernels
+                if _kernel_name(e.key).startswith("sr_")) / 1e3,
+            "by_op_ms": {k: us / 1e3 for k, us in ops[:8]},
+            "windows": tries}
+
+
+def phase_pna_infer(torch, seed: int, g, graph_info):
+    """PNA at the pna config (4 layers, 75 hidden, mean/max/min/std x
+    identity/amplification/attenuation, delta 2.5), random weights from a
+    seeded generator, at the ``ogb_products`` shape with the reference
+    cell's rule (100 features, 47 classes, bf16) on the products graph:
+    ``GNN_FORWARDS`` timed forwards after a warm-up, peak memory, the
+    logits held to relative Frobenius error <= 1e-2 of the plain
+    forward's; one forward's device time by aten op from
+    ``torch.profiler`` (``scatter_reduce_`` is the max/min aggregators,
+    atomics into hubs of up to 3.58 M edges)."""
+    from repro_torch.configs.pna import CONFIG
+    from repro_torch.models.gnn.models import PNA
+
+    cfg = _products_cfg(torch, CONFIG)
+    model = PNA(cfg, device=DEVICE, seed=seed)
+    logits, times, launches, peak, want, plain_s = _infer(
+        torch, model, g, GNN_FORWARDS)
+    n = g["x"].shape[0]
+    out = {"phase": "pna_infer", "config": cfg.name, "layers": cfg.n_layers,
+           "hidden": cfg.d_hidden, "aggregators": list(cfg.aggregators),
+           "scalers": list(cfg.scalers), "delta": cfg.delta,
+           "dtype": "bfloat16", **graph_info, "forwards": GNN_FORWARDS,
+           "forward_s": sorted(times), "forward_s_median": _pctl(times, .5),
+           "nodes_per_s": n / _pctl(times, .5),
+           "edges_per_s": graph_info["edges"] / _pctl(times, .5),
+           "plain_forward_s": plain_s, "segment_sum_launches": launches,
+           "peak_mem_gib": peak}
+    fields, problems = _infer_checks(torch, "PNA", logits, want,
+                                     (n, GIN_CLASSES), launches,
+                                     2 * cfg.n_layers * GNN_FORWARDS)
+    out.update(fields)
+    del logits, want
+    with torch.inference_mode():
+        out["profile"] = _op_device_ms(torch, lambda: model(g))
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    del model
+    _free(torch)
+    return out, launches
+
+
+def phase_nequip_infer(torch, seed: int):
+    """NequIP at the nequip config (5 layers, 32 channels, l_max 2, 8
+    Bessel functions, cutoff 5 A, 16 species), float32 (full float32
+    matmuls: TF32 off), random weights from a seeded generator, at the
+    ``molecule`` shape (``make_molecules``): ``NEQUIP_CALLS`` timed calls
+    of ``energy_and_forces`` (forward, then the gradient back through the
+    segment_sum kernel's autograd.Function) after a warm-up, the launch
+    count zeroed just before and read just after (3 a layer, forward
+    only).  Checks against the plain version on the card: per-molecule
+    energies and the total within rtol 1e-5 + 1e-5 max|E|, forces within
+    rtol 1e-4 + 1e-5 max|F| (float32 sums in other orders, five layers'
+    backward); under a random rotation the total energy within rtol 1e-4
+    and the forces rotated within rtol 2e-3 + 2e-4 max(1, max|F|)
+    (tests/test_gnn.py's tolerances, the atol scaled to the forces); the
+    per-molecule energies unchanged under a translation within rtol 1e-5
+    + 1e-5 max|E|."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.nequip import CONFIG
+    from repro_torch.data.graphs import graph_to_device
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.models.gnn import nequip as NQ
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("float32 matmuls run in TF32: NequIP's checks assume float32")
+    t0 = time.perf_counter()
+    g = graph_to_device(make_molecules(seed), DEVICE)
+    make_s = time.perf_counter() - t0
+    model = NQ.NequIP(CONFIG, device=DEVICE, seed=seed)
+    if model.cfg.backend != "cuda":
+        fail(f"NequIP's default backend is {model.cfg.backend}, not cuda")
+    plain = dataclasses.replace(model.cfg, backend="ref")
+    _reset_peak(torch)
+    model.energy_and_forces(g)                       # warm-up, not counted
+    _sync(torch)
+    ops.segment_sum.launches = 0
+    times = []
+    for _ in range(NEQUIP_CALLS):
+        t0 = time.perf_counter()
+        e, f = model.energy_and_forces(g)
+        _sync(torch)
+        times.append(time.perf_counter() - t0)
+    launches = ops.segment_sum.launches
+    peak = _peak_gib(torch)
+    t0 = time.perf_counter()
+    e_ref, f_ref = NQ.energy_and_forces(model.params(), g, plain)
+    _sync(torch)
+    plain_s = time.perf_counter() - t0
+    with torch.no_grad():
+        eg = model(g)
+        eg_ref = NQ.forward(model.params(), g, plain)
+        shift = torch.tensor([1.7, -0.3, 2.2], device=DEVICE)
+        eg_shift = model({**g, "pos": g["pos"] + shift})
+    q, r = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    rot = torch.as_tensor(q.astype(np.float32), device=DEVICE)
+    e_rot, f_rot = model.energy_and_forces({**g, "pos": g["pos"] @ rot.T})
+
+    def off(got, want, rtol, atol):
+        """Largest excess of |got - want| over rtol |want| + atol."""
+        return float(((got - want).abs() - rtol * want.abs() - atol).max())
+
+    e_max, f_max = float(eg_ref.abs().max()), float(f_ref.abs().max())
+    checks = {
+        "energy_per_molecule": off(eg, eg_ref, 1e-5, 1e-5 * e_max),
+        "energy_total": off(e, e_ref, 1e-5, 1e-5 * e_max),
+        "forces": off(f, f_ref, 1e-4, 1e-5 * f_max),
+        "rotation_energy": off(e_rot, e, 1e-4, 0.0),
+        "rotation_forces": off(f @ rot.T, f_rot, 2e-3,
+                               2e-4 * max(1.0, f_max)),
+        "translation_energy": off(eg_shift, eg, 1e-5, 1e-5 * e_max)}
+    n = g["species"].numel()
+    out = {"phase": "nequip_infer", "config": CONFIG.name,
+           "layers": CONFIG.n_layers, "channels": CONFIG.channels,
+           "l_max": CONFIG.l_max, "n_rbf": CONFIG.n_rbf,
+           "cutoff": CONFIG.cutoff, "species": CONFIG.n_species,
+           "dtype": "float32", "molecules": MOL_BATCH, "atoms": n,
+           "edges": g["edge_src"].numel(), "host_make_s": make_s,
+           "calls": NEQUIP_CALLS, "call_s": sorted(times),
+           "call_s_median": _pctl(times, .5),
+           "atoms_per_s": n / _pctl(times, .5),
+           "plain_call_s": plain_s, "segment_sum_launches": launches,
+           "peak_mem_gib": peak, "energy_total": float(e),
+           "energy_max_abs_err": _max_err(torch, eg, eg_ref),
+           "forces_max_abs_err": _max_err(torch, f, f_ref),
+           "forces_max_abs": f_max,
+           "checks_worst_excess": checks}
+    emit(out)
+    if eg.shape != (MOL_BATCH,) or f.shape != (n, 3) \
+            or not bool(torch.isfinite(f).all()):
+        fail(f"NequIP energies {tuple(eg.shape)} / forces {tuple(f.shape)} "
+             "not finite or of the wrong shape")
+    if launches != 3 * CONFIG.n_layers * NEQUIP_CALLS:
+        fail(f"NequIP launched segment_sum {launches} times in "
+             f"{NEQUIP_CALLS} calls of {CONFIG.n_layers} layers")
+    bad = [k for k, v in checks.items() if v > 0]
+    if bad:
+        fail(f"NequIP: {bad} out of tolerance ({checks})")
+    del model, g
+    _free(torch)
+    return out, launches
+
+
+def phase_minibatch_infer(torch, seed: int, g, graph_info):
+    """GraphSAGE-style minibatch inference through the ported sampler:
+    ``CSRGraph`` of the products graph built once on the host (timed),
+    1,024 seeds drawn with ``np.random.default_rng(seed)`` and sampled
+    with fanout (15, 10), ``minibatch_lg``'s sampling (at most 169,984
+    nodes and 168,960 edges, padded), the subgraph's features gathered on
+    the card (padding rows 0), then GAT and PNA at the products cell's
+    rule over it: ``GNN_FORWARDS`` timed forwards each, held to the plain
+    forward (relative Frobenius error <= 1e-2; GAT's in deterministic
+    mode, as in ``phase_gat_infer``), launches counted.
+    ``minibatch_lg``'s own graph is Reddit-shaped (232,965 nodes, 114.6 M
+    edges, 602 features, 41 classes); this phase samples the products
+    graph already on the card instead (100 features, 47 classes), since
+    building a second graph of 114.6 M edges on the host would cost
+    minutes."""
+    import numpy as np
+
+    from repro_torch.configs.gat_cora import CONFIG as GAT_CFG
+    from repro_torch.configs.pna import CONFIG as PNA_CFG
+    from repro_torch.models.gnn.models import GAT, PNA
+    from repro_torch.models.gnn.sampler import (
+        CSRGraph,
+        sample_subgraph,
+        subgraph_shapes,
+    )
+
+    n = g["x"].shape[0]
+    src = g["edge_src"].cpu().numpy()
+    dst = g["edge_dst"].cpu().numpy()
+    t0 = time.perf_counter()
+    csr = CSRGraph(n, src, dst)
+    csr_s = time.perf_counter() - t0
+    del src, dst
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(n, MINIBATCH_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    sub = sample_subgraph(csr, seeds, MINIBATCH_FANOUTS, rng)
+    sample_s = time.perf_counter() - t0
+    n_max, e_max = subgraph_shapes(MINIBATCH_SEEDS, MINIBATCH_FANOUTS)
+    nodes = torch.as_tensor(sub["nodes"], device=DEVICE).long()
+    sg = {"x": torch.where((nodes >= 0)[:, None], g["x"][nodes.clamp(min=0)],
+                           0),
+          "edge_src": torch.as_tensor(sub["edge_src"], device=DEVICE),
+          "edge_dst": torch.as_tensor(sub["edge_dst"], device=DEVICE)}
+    out = {"phase": "minibatch_infer", "graph": "products", **graph_info,
+           "cut": "samples the ogbn-products-shaped graph (100 features, "
+                  "47 classes) instead of minibatch_lg's Reddit-shaped "
+                  "graph (232,965 nodes, 114.6 M edges, 602 features, 41 "
+                  "classes): a second graph of 114.6 M edges built on the "
+                  "host would cost minutes",
+           "seeds": MINIBATCH_SEEDS, "fanouts": list(MINIBATCH_FANOUTS),
+           "n_max": n_max, "e_max": e_max,
+           "nodes_sampled": int((sub["nodes"] >= 0).sum()),
+           "edges_sampled": int((sub["edge_src"] >= 0).sum()),
+           "host_csr_s": csr_s, "host_sample_s": sample_s}
+    if sub["nodes"].shape != (n_max,) or sub["edge_src"].shape != (e_max,) \
+            or not np.array_equal(sub["nodes"][:MINIBATCH_SEEDS], seeds):
+        fail("the sampler's subgraph is not minibatch_lg's padded shape")
+    launches, problems = {}, []
+    for name, cls, config, per in (("gat", GAT, GAT_CFG, GAT_CFG.n_layers),
+                                   ("pna", PNA, PNA_CFG,
+                                    2 * PNA_CFG.n_layers)):
+        model = cls(_products_cfg(torch, config), device=DEVICE, seed=seed)
+        logits, times, launches[name], peak, want, plain_s = _infer(
+            torch, model, sg, GNN_FORWARDS)
+        default = None
+        if name == "gat":                # checked in deterministic mode
+            default = _default_mode(torch, model, sg, logits, want)
+            logits, want = _deterministic_pair(torch, model, sg)
+        out[name] = {"forward_ms": sorted(t * 1e3 for t in times),
+                     "forward_ms_median": _pctl(times, .5) * 1e3,
+                     "seeds_per_s": MINIBATCH_SEEDS / _pctl(times, .5),
+                     "plain_forward_ms": plain_s * 1e3,
+                     "segment_sum_launches": launches[name],
+                     "peak_mem_gib": peak}
+        fields, more = _infer_checks(
+            torch, f"{name} minibatch", logits, want, (n_max, GIN_CLASSES),
+            launches[name], per * GNN_FORWARDS)
+        out[name].update(fields, default_mode=default)
+        problems += more
+        del model, logits, want
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    _free(torch)
     return out, launches
 
 
@@ -2955,6 +3542,14 @@ def main(argv=None) -> int:
     sums = phase_segment_sum(torch, args.seed, graph,
                              graph_info["max_in_degree"])
     _, sum_launches = phase_gin_infer(torch, args.seed, graph, graph_info)
+    _free(torch)
+    _, gat_cora_launches, gat_launches = phase_gat_infer(
+        torch, args.seed, graph, graph_info)
+    _, pna_launches = phase_pna_infer(torch, args.seed, graph, graph_info)
+    _, nequip_launches = phase_nequip_infer(torch, args.seed)
+    _, minibatch_launches = phase_minibatch_infer(torch, args.seed, graph,
+                                                  graph_info)
+    del graph
 
     def entry(name, source, replaces, launches, rows, timed, **extra):
         row = next(r for r in rows if r["case"] == timed)
@@ -2999,6 +3594,10 @@ def main(argv=None) -> int:
         entry("segment_sum", KERNEL_SOURCES["segment_reduce"],
               "src/repro/kernels/segment_reduce/kernel.py:59", sum_launches,
               sums, "gin_l1_bf16", launches_path="gin_infer",
+              launches_gat_cora=gat_cora_launches,
+              launches_gat=gat_launches, launches_pna=pna_launches,
+              launches_nequip=nequip_launches,
+              launches_minibatch=minibatch_launches,
               tolerance="bf16: rtol 1e-2 + 2 deg 2^-24 sum|msg| per element; "
                         "float32 integer messages: equal"),
     ]})

@@ -97,6 +97,14 @@ PATH_LEVEL_CAP = 65_536            # a slot's level / L0 table
 PATH_CAPACITY = 262_144            # one engine's table over all shards
 PATH_SLOTS = (1, 4, 8)             # node ticks, mesh blocks, slot groups
 GIN_E, GIN_N = 61_225_725, 2_449_029
+# the other GNN paths' message widths: GAT's two layers at the products
+# widths (8 heads x 8 hidden, 8 heads x 47 classes) and PNA's 75 hidden,
+# bf16, on the products graph and on a minibatch_lg subgraph (1,024
+# seeds, fanout 15-10); NequIP's l = 0/1/2 sums (32 channels x 1/3/9),
+# float32, over 128 molecules of 30 atoms and 64 edges
+GNN_WIDTHS = (64, 376, 75)
+MINIBATCH_E, MINIBATCH_N = 168_960, 169_984
+NEQUIP_E, NEQUIP_N, NEQUIP_WIDTHS = 128 * 64, 128 * 30, (32, 96, 288)
 SEG_WIDE_N = 4_000_000             # past the on-chip tile counters
 WD_BATCHES = (512, 262_144)        # serve_p99, serve_bulk
 WD_TABLES = ((4_000_000, 1), (1_000_000, 32))
@@ -628,6 +636,13 @@ def _check_segment_sum(sink, kernels_root, fast):
                    required=True)
     _seg_point(sink, K, defines, rel, GIN_E, SEG_WIDE_N, 64, 2, 0,
                required=True)
+    for (e, n), d in itertools.product(((GIN_E, GIN_N),
+                                        (MINIBATCH_E, MINIBATCH_N)),
+                                       GNN_WIDTHS):
+        _seg_point(sink, K, defines, rel, e, n, d, 2, 0, required=True)
+    for d in NEQUIP_WIDTHS:
+        _seg_point(sink, K, defines, rel, NEQUIP_E, NEQUIP_N, d, 4, 0,
+                   required=True)
 
 
 def _bag_point(sink, K, defines, path, t, n_bags, v, d, elem, align,

@@ -1,2 +1,3 @@
 """Published configurations of the ported models (``wide_deep``,
-``gin_tu``) and the shape sets they are served at (``registry``)."""
+``gin_tu``, ``gat_cora``, ``pna``, ``nequip``) and the shape sets they
+are served at (``registry``)."""

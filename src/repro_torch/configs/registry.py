@@ -1,7 +1,9 @@
 """Config and shape records, copied from ``repro.configs.registry``:
 ``ShapeSpec``, ``ArchSpec`` and the shape sets of the ported families
-(recsys, gnn).  The reference's registry of all architectures waits for
-the slices that port them."""
+(recsys, gnn; NequIP is served at the gnn shapes).  The reference's
+registry of all architectures (``ARCHS``, ``get_arch``) also lists the
+LM configs: it waits for the slice that ports them (ROADMAP.md, Queue A
+item 6.4)."""
 
 from __future__ import annotations
 

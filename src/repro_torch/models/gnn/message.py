@@ -2,8 +2,9 @@
 port of ``repro.models.gnn.message``.
 
 Edges with src or dst < 0 are padding and contribute nothing.  Sum and
-mean go through the segment_sum kernel; max/min, ``segment_softmax`` and
-``degrees`` are plain torch, as the reference's are plain JAX.
+mean go through the segment_sum kernel; max/min (``segment_extreme``),
+``segment_softmax``, ``degrees`` and the per-graph pooling
+(``pool_graphs``) are plain torch, as the reference's are plain JAX.
 """
 
 from __future__ import annotations
@@ -28,15 +29,22 @@ def gather_scatter(x, edge_src, edge_dst, n_nodes: int,
     if reduce == "mean":
         return sr.segment_mean(dst, msg, n_nodes, backend)
     if reduce in ("max", "min"):
-        seg = torch.where(dst < 0, n_nodes, dst).long()
-        fill = float("-inf") if reduce == "max" else float("inf")
-        out = torch.full((n_nodes + 1, msg.shape[1]), fill, dtype=msg.dtype,
-                         device=msg.device)
-        out.scatter_reduce_(0, seg[:, None].expand_as(msg), msg,
-                            "amax" if reduce == "max" else "amin")
-        out = out[:n_nodes]
-        return torch.where(torch.isfinite(out), out, 0)
+        return segment_extreme(dst, msg, n_nodes, reduce)
     raise ValueError(reduce)
+
+
+def segment_extreme(dst, msg, n_nodes: int, reduce: str):
+    """The reference's ``jax.ops.segment_max``/``segment_min`` (``reduce``
+    "max"/"min") over dst (< 0 = padding), plain ``scatter_reduce_``;
+    a segment with no edge gives 0."""
+    seg = torch.where(dst < 0, n_nodes, dst).long()
+    fill = float("-inf") if reduce == "max" else float("inf")
+    out = torch.full((n_nodes + 1, msg.shape[1]), fill, dtype=msg.dtype,
+                     device=msg.device)
+    out.scatter_reduce_(0, seg[:, None].expand_as(msg), msg,
+                        "amax" if reduce == "max" else "amin")
+    out = out[:n_nodes]
+    return torch.where(torch.isfinite(out), out, 0)
 
 
 def segment_softmax(scores, seg, n_segments: int):
@@ -54,6 +62,18 @@ def segment_softmax(scores, seg, n_segments: int):
     ex = torch.where((seg >= 0)[:, None], ex, 0)
     den = torch.zeros_like(mx).index_add_(0, seg_safe, ex)
     return ex / torch.clamp(den[seg_safe], min=1e-16)
+
+
+def pool_graphs(x, graph_ids, n_graphs: int):
+    """Sum of the rows of ``x`` [N, ...] per graph (graph_ids -1 =
+    padding) -> [n_graphs, ...]: plain ``index_add_``, as the
+    reference's ``jax.ops.segment_sum`` there is plain XLA."""
+    seg = torch.where(graph_ids < 0, n_graphs, graph_ids).long()
+    ok = (graph_ids >= 0).view((-1,) + (1,) * (x.dim() - 1))
+    pooled = torch.zeros((n_graphs + 1,) + tuple(x.shape[1:]),
+                         dtype=x.dtype, device=x.device)
+    pooled.index_add_(0, seg, torch.where(ok, x, 0))
+    return pooled[:n_graphs]
 
 
 def degrees(edge_dst, n_nodes: int):

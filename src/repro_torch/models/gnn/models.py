@@ -1,14 +1,16 @@
-"""GIN, the port of the GIN half of ``repro.models.gnn.models``
-(inference: the forward, node-level and pooled per graph).
+"""GAT, GIN and PNA, the port of ``repro.models.gnn.models`` (inference:
+the forwards, node-level, and GIN's pooled per graph).
 
 Graphs are dicts of tensors:
   x [N, F] node features; edge_src/edge_dst int32 [E] (-1 = padding);
   optional graph_ids [N] (-1 = padding) with ``n_graphs`` (an int) for
   batched small graphs.
 
-Message passing sums through the segment_sum kernel (``message.
-gather_scatter``).  GAT, PNA, NequIP, the sampler and the training loss
-wait for later slices (ROADMAP.md, Queue A).
+Every segment *sum* goes through the segment_sum kernel (``message.
+gather_scatter`` for GIN, ``sr.segment_sum`` for GAT's messages and
+PNA's sum and sum of squares); segment max/min and the attention
+softmax are plain torch, as the reference's are plain JAX.  The training
+loss waits for a later slice (ROADMAP.md, Queue A item 6.3).
 """
 
 from __future__ import annotations
@@ -16,33 +18,147 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.join import resolve_backend
 from repro_torch.core.state import resolve_device
+from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.models.common import dense_init, params_from_numpy  # noqa: F401
-from repro_torch.models.gnn.message import gather_scatter
+from repro_torch.models.gnn.message import (
+    degrees,
+    gather_scatter,
+    pool_graphs,
+    segment_extreme,
+    segment_softmax,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
     name: str = "gnn"
-    arch: str = "gin"
+    arch: str = "gat"            # gat | gin | pna
     n_layers: int = 2
     d_in: int = 16
     d_hidden: int = 8
-    # the reference's fields after d_hidden (n_heads, aggregators, ...)
-    # belong to GAT/PNA/NequIP, which are not ported: the rest is
-    # keyword-only, so no positional config means another field here
-    _: dataclasses.KW_ONLY
+    n_heads: int = 8             # gat
     n_classes: int = 7
-    eps_learnable: bool = True
-    backend: str | None = None     # segment_sum: None = device default
+    eps_learnable: bool = True   # gin
+    aggregators: tuple = ("mean", "max", "min", "std")   # pna
+    scalers: tuple = ("identity", "amplification", "attenuation")
+    delta: float = 2.5           # pna degree normalizer (log-mean degree)
+    backend: str | None = None   # segment_sum: None = device default
+    # nequip (its model takes models.gnn.nequip.NequIPConfig)
+    l_max: int = 2
+    n_rbf: int = 8
+    cutoff: float = 5.0
     dtype: torch.dtype = torch.float32
+    # the reference's mesh_axes and remat (JAX sharding, jax.checkpoint)
+    # are not ported: a field the port adds comes after this marker
+    _: dataclasses.KW_ONLY
 
 
-def gin_init(gen: torch.Generator, cfg: GNNConfig, *,
-             device=None) -> dict:
+def _module_params(tree: dict, device) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v.to(device))
+                             for k, v in tree.items()})
+
+
+class _GNN(nn.Module):
+    """Parameters on ``device`` (None means the card) in the reference's
+    tree layout: ``params`` (from ``INITS[arch]`` or
+    ``params_from_numpy``), or drawn from a generator seeded with
+    ``seed`` on the device.  ``backend`` is the segment_sum backend the
+    forward uses ("ref" runs the plain version on the card)."""
+
+    ARCH = ""
+
+    def __init__(self, cfg: GNNConfig, *, device=None, seed: int = 0,
+                 params: dict | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.backend = resolve_backend(cfg.backend, device)
+        if params is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = INITS[self.ARCH](gen, cfg, device=device)
+        self.layers = nn.ModuleList(_module_params(lp, device)
+                                    for lp in params["layers"])
+        if "readout" in params:
+            self.readout = nn.Parameter(params["readout"].to(device))
+
+    def _layer(self, lp, keys):
+        return (lp[k].to(self.cfg.dtype) for k in keys)
+
+
+# --------------------------------------------------------------------- #
+# GAT
+# --------------------------------------------------------------------- #
+def gat_init(gen: torch.Generator, cfg: GNNConfig, *, device=None) -> dict:
+    """Seeded GAT parameters in the reference's tree layout."""
+    device = resolve_device(device)
+    layers = []
+    d = cfg.d_in
+    for i in range(cfg.n_layers):
+        last = i == cfg.n_layers - 1
+        out = cfg.n_classes if last else cfg.d_hidden
+        layers.append({
+            "w": dense_init(gen, (d, cfg.n_heads, out), device=device),
+            "a_src": dense_init(gen, (cfg.n_heads, out), 1, device=device),
+            "a_dst": dense_init(gen, (cfg.n_heads, out), 1, device=device),
+        })
+        d = out if last else out * cfg.n_heads
+    return {"layers": layers}
+
+
+class GAT(_GNN):
+    """GAT: per layer ``h = x w`` [N, H, O], attention logits
+    ``leaky_relu(es + ed, 0.2)`` softmaxed over each node's in-edges,
+    messages ``h[src] * alpha`` summed into dst through the segment_sum
+    kernel; ELU of the concatenated heads, the head mean at the last
+    layer.  Logits [N, n_classes] in ``cfg.dtype``.
+
+    ``es``/``ed`` are computed per node and gathered per edge ([E, H]),
+    where the reference gathers ``h[src]``/``h[dst]`` ([E, H, O]) for
+    them, and the one [E, H, O] gather (the message) is scaled in place:
+    at the ogbn-products shape the second layer's message alone is
+    61 M x 8 x 47 bf16 = 46 GB, and a second one does not fit on the
+    card."""
+
+    ARCH = "gat"
+    KEYS = ("w", "a_src", "a_dst")
+
+    def forward(self, g: dict) -> torch.Tensor:
+        x = g["x"].to(self.cfg.dtype)
+        n = x.shape[0]
+        src, dst = g["edge_src"], g["edge_dst"]
+        e_ok = (src >= 0) & (dst >= 0)
+        s, t = src.clamp(min=0).long(), dst.clamp(min=0).long()
+        seg = torch.where(e_ok, dst, -1)
+        for i, lp in enumerate(self.layers):
+            w, a_src, a_dst = self._layer(lp, self.KEYS)
+            h = torch.einsum("nf,fho->nho", x, w)             # [N, H, O]
+            score = F.leaky_relu(torch.einsum("nho,ho->nh", h, a_src)[s]
+                                 + torch.einsum("nho,ho->nh", h, a_dst)[t],
+                                 0.2)                           # [E, H]
+            score.masked_fill_(~e_ok[:, None], float("-inf"))
+            alpha = segment_softmax(score, seg, n)
+            del score
+            msg = h[s]                            # [E, H, O], a fresh gather
+            msg.mul_(alpha[..., None])            # scaled in place
+            del alpha
+            agg = sr.segment_sum(seg, msg.view(msg.shape[0], -1), n,
+                                 self.backend)
+            del msg
+            agg = agg.view(n, h.shape[1], -1)
+            x = agg.mean(1) if i == len(self.layers) - 1 \
+                else F.elu(agg.view(n, -1))
+        return x
+
+
+# --------------------------------------------------------------------- #
+# GIN
+# --------------------------------------------------------------------- #
+def gin_init(gen: torch.Generator, cfg: GNNConfig, *, device=None) -> dict:
     """Seeded GIN parameters in the reference's tree layout, made on
     ``device`` from ``gen`` (a generator on that device)."""
     device = resolve_device(device)
@@ -62,53 +178,113 @@ def gin_init(gen: torch.Generator, cfg: GNNConfig, *,
                                   device=device)}
 
 
-class GIN(nn.Module):
-    """GIN on ``device`` (None means the card).  ``params`` is a tree of
-    tensors in the reference's layout (``gin_init`` or
-    ``params_from_numpy``); without it the parameters come from a
-    generator seeded with ``seed`` on the device."""
+def _norm_relu(h, ln):
+    """The reference's normalisation: population variance, sd >= 1e-3."""
+    mu = h.mean(-1, keepdim=True)
+    sd = torch.sqrt(torch.clamp(h.var(-1, keepdim=True, correction=0),
+                                min=1e-6))
+    return torch.relu(ln * (h - mu) / sd)
 
+
+class GIN(_GNN):
+    """GIN; logits [N, n_classes] per node, or [n_graphs, n_classes]
+    pooled per graph when ``g`` has ``graph_ids``."""
+
+    ARCH = "gin"
     KEYS = ("w1", "w2", "ln", "eps")
 
-    def __init__(self, cfg: GNNConfig, device=None, seed: int = 0,
-                 params: dict | None = None):
-        super().__init__()
-        device = resolve_device(device)
-        self.cfg = cfg
-        self.backend = resolve_backend(cfg.backend, device)
-        if params is None:
-            gen = torch.Generator(device=device).manual_seed(seed)
-            params = gin_init(gen, cfg, device=device)
-        self.layers = nn.ModuleList(
-            nn.ParameterDict({k: nn.Parameter(lp[k].to(device))
-                              for k in self.KEYS})
-            for lp in params["layers"])
-        self.readout = nn.Parameter(params["readout"].to(device))
-
     def forward(self, g: dict) -> torch.Tensor:
-        """Logits: [N, n_classes] per node, or [n_graphs, n_classes]
-        pooled per graph when ``g`` has ``graph_ids``."""
-        dt = self.cfg.dtype
-        x = g["x"].to(dt)
+        x = g["x"].to(self.cfg.dtype)
         n = x.shape[0]
         for lp in self.layers:
-            w1, w2, ln, eps = (lp[k].to(dt) for k in self.KEYS)
+            w1, w2, ln, eps = self._layer(lp, self.KEYS)
             agg = gather_scatter(x, g["edge_src"], g["edge_dst"], n,
                                  reduce="sum", backend=self.backend)
             h = (1.0 + eps) * x + agg
             h = torch.relu(h @ w1)
-            h = h @ w2
-            mu = h.mean(-1, keepdim=True)
-            sd = torch.sqrt(torch.clamp(
-                h.var(-1, keepdim=True, correction=0), min=1e-6))
-            x = torch.relu(ln * (h - mu) / sd)
+            x = _norm_relu(h @ w2, ln)
         if "graph_ids" in g:
-            gid = g["graph_ids"]
-            n_graphs = g["n_graphs"]
-            seg = torch.where(gid < 0, n_graphs, gid).long()
-            pooled = torch.zeros((n_graphs + 1, x.shape[1]), dtype=x.dtype,
-                                 device=x.device)
-            pooled.index_add_(0, seg, torch.where((gid >= 0)[:, None], x, 0))
-            x = pooled[:n_graphs]
+            x = pool_graphs(x, g["graph_ids"], g["n_graphs"])
         # the reference multiplies by the float32 readout: a float32 result
         return x.to(self.readout.dtype) @ self.readout
+
+
+# --------------------------------------------------------------------- #
+# PNA
+# --------------------------------------------------------------------- #
+def pna_init(gen: torch.Generator, cfg: GNNConfig, *, device=None) -> dict:
+    """Seeded PNA parameters in the reference's tree layout."""
+    device = resolve_device(device)
+    layers = []
+    d = cfg.d_in
+    n_mix = len(cfg.aggregators) * len(cfg.scalers)
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "pre": dense_init(gen, (2 * d, cfg.d_hidden), device=device),
+            "post": dense_init(gen, (n_mix * cfg.d_hidden + d,
+                                     cfg.d_hidden), device=device),
+            "ln": torch.ones((cfg.d_hidden,), device=device),
+        })
+        d = cfg.d_hidden
+    return {"layers": layers,
+            "readout": dense_init(gen, (cfg.d_hidden, cfg.n_classes),
+                                  device=device)}
+
+
+class PNA(_GNN):
+    """PNA: messages ``relu(concat(x[src], x[dst]) pre)``, the mean / max
+    / min / std aggregators (sum and sum of squares through the
+    segment_sum kernel, max and min plain ``scatter_reduce_``; a node
+    without edges gets 0), each under the identity / amplification /
+    attenuation scalers of ``log1p(deg)`` and ``delta``, then ``post``
+    and the normalisation.  Logits [N, n_classes] in float32 (the
+    reference's float32 readout).
+
+    ``concat(x[src], x[dst])`` is one gather of [E, 2] row pairs, so no
+    separate halves exist beside it."""
+
+    ARCH = "pna"
+    KEYS = ("pre", "post", "ln")
+
+    def forward(self, g: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = g["x"].to(cfg.dtype)
+        n = x.shape[0]
+        src, dst = g["edge_src"], g["edge_dst"]
+        e_ok = (src >= 0) & (dst >= 0)
+        pair = torch.stack([src.clamp(min=0), dst.clamp(min=0)], 1).long()
+        seg = torch.where(e_ok, dst, -1)
+        deg = degrees(dst, n).to(cfg.dtype)
+        cnt = torch.clamp(deg[:, None], min=1.0)
+        logd = torch.log1p(deg)[:, None]
+        for lp in self.layers:
+            pre, post, ln = self._layer(lp, self.KEYS)
+            msg = torch.relu(x[pair].view(pair.shape[0], -1) @ pre)  # [E, H]
+            m_mean = sr.segment_sum(seg, msg, n, self.backend) / cnt
+            aggs = []
+            if "mean" in cfg.aggregators:
+                aggs.append(m_mean)
+            for red in ("max", "min"):
+                if red in cfg.aggregators:
+                    aggs.append(segment_extreme(seg, msg, n, red))
+            if "std" in cfg.aggregators:
+                sq = sr.segment_sum(seg, msg * msg, n, self.backend)
+                var = torch.clamp(sq / cnt - m_mean ** 2, min=0)
+                aggs.append(torch.sqrt(var + 1e-6))
+            del msg
+            scaled = []
+            for a in aggs:
+                for sc in cfg.scalers:
+                    if sc == "identity":
+                        scaled.append(a)
+                    elif sc == "amplification":
+                        scaled.append(a * (logd / cfg.delta))
+                    elif sc == "attenuation":
+                        scaled.append(
+                            a * (cfg.delta / torch.clamp(logd, min=1e-3)))
+            x = _norm_relu(torch.cat(scaled + [x], -1) @ post, ln)
+        return x.to(self.readout.dtype) @ self.readout
+
+
+# --------------------------------------------------------------------- #
+INITS = {"gat": gat_init, "gin": gin_init, "pna": pna_init}

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import _torch_util  # noqa: F401  (caps torch threads)
-from repro_torch.configs import gin_tu, wide_deep
+from repro_torch.configs import gat_cora, gin_tu, nequip, pna, wide_deep
 from repro_torch.core import engine, multi, state
 from repro_torch.core import join as TJ
 from repro_torch.core.plan import compile_plan
@@ -38,7 +38,8 @@ from repro_torch.kernels.compat_join import ops as cj_ops
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.models.common import params_from_numpy
-from repro_torch.models.gnn.models import GIN
+from repro_torch.models.gnn.models import GAT, GIN, PNA
+from repro_torch.models.gnn.nequip import NequIP
 from repro_torch.models.recsys.wide_deep import WideDeep
 from repro_torch.core.query import QueryGraph
 from repro_torch.runtime.service import ContinuousSearchService
@@ -70,6 +71,9 @@ MODULES = [
     "repro_torch.runtime", "repro_torch.runtime.fault",
     "repro_torch.runtime.mesh", "repro_torch.analysis.ast_lint",
     "repro_torch.analysis.kernel_check", "repro_torch.analysis.cli",
+    "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.sampler",
+    "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
+    "repro_torch.configs.nequip",
 ]
 
 
@@ -117,7 +121,7 @@ def _plan():
     "shared_service", "init_node_state", "stream_session", "stream_server",
     "service_restore", "session_frontier", "service_frontier",
     "session_restore_ingest", "sharded_service", "mesh_session",
-    "make_mesh", "sharded_tick"])
+    "make_mesh", "sharded_tick", "gat", "pna", "nequip"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
     from repro_torch.core.distributed import build_sharded_tick, make_mesh
@@ -182,6 +186,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
             **{"device": "cuda", **kw}),
         "wide_deep": lambda **kw: WideDeep(wide_deep.smoke_config(), **kw),
         "gin": lambda **kw: GIN(gin_tu.smoke_config(), **kw),
+        "gat": lambda **kw: GAT(gat_cora.smoke_config(), **kw),
+        "pna": lambda **kw: PNA(pna.smoke_config(), **kw),
+        "nequip": lambda **kw: NequIP(nequip.smoke_config(), **kw),
         "batch_to_device": lambda **kw: batch_to_device(
             {"dense": np.zeros((2, 3), np.float32)}, **kw),
         "graph_to_device": lambda **kw: graph_to_device(

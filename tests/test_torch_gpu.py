@@ -532,6 +532,103 @@ def test_segment_sum_kernel_without_edges(cuda, case, dtype):
     assert not got.any()
 
 
+@pytest.mark.parametrize("d,dtype", [
+    (64, torch.bfloat16), (376, torch.bfloat16), (75, torch.bfloat16),
+    (32, torch.float32), (96, torch.float32), (288, torch.float32)])
+def test_segment_sum_gradient_equals_plain(cuda, d, dtype):
+    """At the GAT / PNA / NequIP widths: the kernel's forward inside its
+    ``autograd.Function`` (one launch; the backward launches none) and
+    its gradient, a gather, equal to the plain version's
+    (``index_add_``'s own backward) element for element."""
+    e, n = 100_000, 3000
+    g = torch.Generator(device=cuda).manual_seed(d)
+    dst = torch.randint(-20, n + 20, (e,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dst[torch.rand((e,), generator=g, device=cuda) < 0.4] = n // 3
+    msg = _sr_msg(g, e, d, dtype, cuda, False).requires_grad_(True)
+    w = torch.randn((n, d), generator=g, device=cuda)
+    before = sr_ops.segment_sum.launches
+    out = sr_ops.segment_sum(dst, msg, n)
+    (got,) = torch.autograd.grad((out.float() * w).sum(), msg)
+    assert sr_ops.segment_sum.launches == before + 1
+    (want,) = torch.autograd.grad(
+        (sr_ref.segment_sum(dst, msg, n).float() * w).sum(), msg)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    with torch.no_grad():
+        _sr_check(dst, msg, n)
+
+
+def _gnn_graph(cuda, n=3000, e=40_000, d=16, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    src = torch.randint(0, n, (e,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n - 50, (e,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dst[torch.rand((e,), generator=g, device=cuda) < 0.3] = 7     # a hub
+    src[:100] = -1                                                # padding
+    return {"x": torch.randn((n, d), generator=g, device=cuda),
+            "edge_src": src, "edge_dst": dst}
+
+
+@pytest.mark.parametrize("arch", ["gat", "pna"])
+def test_gnn_on_card_equals_plain_version(cuda, arch):
+    """GAT and PNA (smoke configs, float32) through the kernel equal the
+    same module on the plain version (``backend = "ref"``) within float32
+    summation noise (rtol 1e-5 / atol 1e-5), one launch per segment sum."""
+    import dataclasses
+
+    from repro_torch.configs import gat_cora, pna
+    from repro_torch.models.gnn.models import GAT, PNA
+
+    mod, cls = (gat_cora, GAT) if arch == "gat" else (pna, PNA)
+    cfg = dataclasses.replace(mod.smoke_config(), d_in=16)
+    model = cls(cfg, device=cuda, seed=1)
+    graph = _gnn_graph(cuda)
+    with torch.no_grad():
+        before = sr_ops.segment_sum.launches
+        got = model(graph)
+        launches = sr_ops.segment_sum.launches - before
+        model.backend = "ref"
+        want = model(graph)
+    assert launches == cfg.n_layers * (1 if arch == "gat" else 2)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_nequip_on_card_equals_plain_version(cuda):
+    """NequIP (smoke config) energy and forces through the kernel and its
+    backward equal the plain version's within float32 summation noise
+    (energy rtol 1e-5, forces rtol 1e-4 / atol 1e-5 of the largest),
+    three launches a layer."""
+    import dataclasses
+
+    from repro_torch.configs import nequip
+    from repro_torch.models.gnn import nequip as NQ
+
+    cfg = nequip.smoke_config()
+    model = NQ.NequIP(cfg, device=cuda, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_mol, n_atoms = 16, 12
+    pos = torch.rand((n_mol * n_atoms, 3), generator=g, device=cuda) * 6
+    mol = torch.arange(n_mol * n_atoms, device=cuda) // n_atoms
+    src, dst = torch.nonzero((mol[:, None] == mol[None])
+                             & ~torch.eye(n_mol * n_atoms, dtype=torch.bool,
+                                          device=cuda), as_tuple=True)
+    graph = {"species": torch.randint(0, cfg.n_species, (n_mol * n_atoms,),
+                                      generator=g, device=cuda),
+             "pos": pos, "edge_src": src.int(), "edge_dst": dst.int(),
+             "graph_ids": mol.int(), "n_graphs": n_mol}
+    before = sr_ops.segment_sum.launches
+    e, f = model.energy_and_forces(graph)
+    assert sr_ops.segment_sum.launches - before == 3 * cfg.n_layers
+    e_ref, f_ref = NQ.energy_and_forces(
+        model.params(), graph, dataclasses.replace(model.cfg, backend="ref"))
+    torch.testing.assert_close(e, e_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(f, f_ref, rtol=1e-4,
+                               atol=1e-5 * float(f_ref.abs().max()))
+
+
 # --------------------------------------------------------------------- #
 # the stateful serving stack on the card
 # --------------------------------------------------------------------- #

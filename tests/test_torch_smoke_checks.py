@@ -120,3 +120,57 @@ def test_session_patterns_share_one_prefix_chain_per_family():
     fs = svc.forest_stats()
     assert (fs.n_nodes, fs.n_shared_nodes, fs.n_tenants) == (4, 4, 16)
     assert len(svc._iter_groups()) == 2 and svc.n_compiles == 1
+
+
+def test_make_molecules_is_the_molecule_shape():
+    """The ``nequip_infer`` phase's data: ``gnn_shapes``' molecule shape
+    (128 molecules of 30 atoms, 64 directed edges each), edges inside
+    their molecule, between distinct atoms within the cutoff, each
+    ordered pair once; atoms at least 1 A apart; the same seed gives the
+    same arrays."""
+    import numpy as np
+
+    from repro_torch.configs.nequip import CONFIG
+    from repro_torch.configs.registry import gnn_shapes
+
+    shape = {s.name: s for s in gnn_shapes()}["molecule"].extra
+    mol = cs.make_molecules(3)
+    b, a, e = shape["batch"], shape["n_nodes"], shape["n_edges"]
+    assert (cs.MOL_BATCH, cs.MOL_ATOMS, cs.MOL_EDGES) == (b, a, e)
+    assert mol["pos"].shape == (b * a, 3) and mol["n_graphs"] == b
+    assert mol["edge_src"].shape == mol["edge_dst"].shape == (b * e,)
+    src, dst = mol["edge_src"], mol["edge_dst"]
+    assert (mol["graph_ids"][src] == mol["graph_ids"][dst]).all()
+    assert (np.bincount(mol["graph_ids"][src], minlength=b) == e).all()
+    d = np.linalg.norm(mol["pos"][src] - mol["pos"][dst], axis=-1)
+    assert (src != dst).all() and (d < CONFIG.cutoff).all()
+    assert len(set(zip(src.tolist(), dst.tolist()))) == b * e
+    pos = mol["pos"].reshape(b, a, 3)
+    gaps = np.linalg.norm(pos[:, :, None] - pos[:, None], axis=-1)
+    assert (gaps + 9 * np.eye(a) >= 1.0 - 1e-5).all()
+    assert 0 <= mol["species"].min() and \
+        mol["species"].max() < CONFIG.n_species
+    again = cs.make_molecules(3)
+    assert all(np.array_equal(mol[k], again[k]) for k in mol
+               if k != "n_graphs")
+
+
+def test_infer_checks_flag_each_fault():
+    """The GNN phases' checks: a relative error past 1e-2, a launch count
+    off the prediction, a non-finite or misshapen output each give a
+    problem; agreeing logits give none."""
+    import torch
+
+    want = torch.randn((50, 4), generator=torch.Generator().manual_seed(0))
+    fields, problems = cs._infer_checks(torch, "m", want * (1 + 1e-4), want,
+                                        (50, 4), 6, 6)
+    assert problems == [] and fields["logits_rel_err"] < 1e-3
+    assert fields["argmax_agreement"] == 1.0
+    off = want.clone()
+    off[0] += 10.0
+    assert len(cs._infer_checks(torch, "m", off, want, (50, 4), 6, 6)[1]) == 1
+    assert len(cs._infer_checks(torch, "m", want, want, (50, 4), 5, 6)[1]) == 1
+    nan = want.clone()
+    nan[1, 1] = float("nan")
+    assert cs._infer_checks(torch, "m", nan, want, (50, 4), 6, 6)[1]
+    assert cs._infer_checks(torch, "m", want, want, (50, 5), 6, 6)[1]

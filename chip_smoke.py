@@ -130,6 +130,21 @@ exit, nothing is caught and skipped):
                 ending identical to the uninterrupted run; prints edges/s
                 and tick p50/p99 for each n and the unsharded engines,
                 and a tick's device ms with the pair kernel's by step;
+  sjtree        the paper's baseline comparison (Figures 14-17): the
+                SJ-tree (``core.sjtree``: every edge its own leaf, the
+                timing order checked by a host post-filter) against the
+                timing-aware engine, both through ``build_tick`` on the
+                CUDA backend, for the serve phase's chain and two-chain
+                at its capacities on its stream, at three windows each:
+                the largest at which every table of both engines stays
+                within the capacities by a host reckoning of the stream
+                (``sjtree_window``), its half and its quarter; checks:
+                overflow 0, each tick's post-filtered matches equal to
+                the engine's, the final current matches, the CUDA
+                SJ-tree's tables equal to a REF run's over 16 ticks,
+                every SJ-tree pair launch at S = 1; prints edges/s and
+                the average live bytes a tick (MS-tree and independent
+                storage) of both;
   embedding_bag_cases  the embedding_bag kernel against its plain
                 version (Wide&Deep's wide side at serve_p99/serve_bulk,
                 one general case), with F.embedding_bag's time beside it,
@@ -139,6 +154,16 @@ exit, nothing is caught and skipped):
   recsys_serve  Wide&Deep at its published config serving 20 batches
                 each of serve_p99 and serve_bulk; logits held against
                 the plain version; one top-100 retrieval of 1M;
+  recsys_train  Wide&Deep training at the published config: the wide
+                gradient of ``bce_loss`` on the card (the embedding_bag
+                kernel's autograd Function, its backward the segment_sum
+                kernel) against the plain version's, then
+                ``make_recsys_train_step`` (AdamW factored) on batches of
+                65,536: one step held to the plain version's step (every
+                leaf but the 5 GB tables whole, and of the tables the
+                rows the batch reads and some it does not, in three
+                fields), timed steps, step time, examples/s and peak
+                memory;
   segment_sum_cases  the segment_sum kernel against its plain version at
                 the GNN paths' shapes on an ogbn-products-shaped graph
                 (GIN's layers, GAT's two layers, PNA's 75 columns, and
@@ -169,13 +194,21 @@ exit, nothing is caught and skipped):
   minibatch_infer  the ported neighbour sampler on the products graph
                 (1,024 seeds, fanout 15-10: minibatch_lg's sampling; the
                 cut is printed), host CSR and sampling times, GAT and PNA
-                over the subgraph against the plain forward.
+                over the subgraph against the plain forward;
+  gnn_train     the GNN zoo's train steps (``make_gnn_train_step``, AdamW
+                fp32): GIN at the products shape (bf16, remat), GAT at
+                Cora (float32), GAT and PNA on the sampler's subgraph
+                (bf16, remat), NequIP ``mse_loss`` on the molecules; one
+                step of each held to the plain version's (loss,
+                grad_norm, gradients, parameters), step time, nodes/s
+                (atoms/s), peak memory, segment_sum launches a step.
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
-each capacity run, each mask case's entry-point call, recsys_serve,
+each capacity run, each SJ-tree run, each mask case's entry-point call,
+recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
-each model of minibatch_infer).  Then a {"kernels": [...]}
+each model of minibatch_infer, each case's timed steps of gnn_train).  Then a {"kernels": [...]}
 line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
@@ -2407,6 +2440,356 @@ def phase_capacity(torch, args, stream):
 # --------------------------------------------------------------------- #
 # substrate: Wide&Deep serving (embedding_bag), GIN inference (segment_sum)
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# sjtree: the paper's baseline against the timing-aware engine
+# --------------------------------------------------------------------- #
+SJTREE_TENANTS = (0, 8)        # tenants(): the 3-edge chain, a two-chain
+SJTREE_SWEEP = (4, 2, 1)       # windows: the reckoned largest / 4, / 2, / 1
+SJTREE_REF_TICKS = 16          # the REF run's ticks
+_NODE_BYTES_MSTREE = 4 * 4 + 1  # src, dst, ts, parent, valid
+
+
+def _row_bytes(plan, mode: str) -> list:
+    """Bytes of one live row of each table, in state order (each
+    subquery's levels, then the L0 tables), under a storage model: the
+    formula of ``benchmarks/common.py`` ``state_bytes`` (paper Figures
+    16-17).  ``mstree``: an expansion-list node stores (src, dst, ts,
+    parent); ``ind``: a partial match stores its full bindings and one ts
+    per edge (Timing-IND, the SJ-tree's model)."""
+    out = []
+    for s in plan.subqueries:
+        for li, lv in enumerate(s.levels):
+            out.append(_NODE_BYTES_MSTREE if mode == "mstree"
+                       else (len(lv.vertex_layout) + li + 1) * 4 + 1)
+    for js in plan.l0_joins:
+        out.append((len(js.vertex_layout) + len(js.edge_layout)) * 4 + 1)
+    return out
+
+
+def _table_rows(torch, state):
+    """Live rows of each table in state order, one int64 tensor on the
+    state's device (no host read)."""
+    return torch.stack([t.valid.sum() for sub in state.levels for t in sub]
+                       + [t.valid.sum() for t in state.l0])
+
+
+def _table_patterns(plan) -> list:
+    """The query edges each table's rows bind, in state order: level li of
+    a subquery binds the first li + 1 edges of its timing order, L0 table
+    i the edges of subqueries 0..i+1."""
+    out = []
+    for s in plan.subqueries:
+        for li in range(len(s.levels)):
+            out.append(frozenset(lv.qedge for lv in s.levels[:li + 1]))
+    acc = {lv.qedge for lv in plan.subqueries[0].levels}
+    for gi in range(len(plan.l0_joins)):
+        acc |= {lv.qedge for lv in plan.subqueries[gi + 1].levels}
+        out.append(frozenset(acc))
+    return out
+
+
+def _hom_rows(q, pattern, edges, n_v: int) -> float:
+    """Rows a table over the query edges ``pattern`` (a tree) can hold
+    when ``edges[e]`` = (src, dst) are the live data edges matching query
+    edge e: the homomorphisms of the pattern, counted by a tree sum over
+    per-vertex counts (``np.bincount``).  Injectivity, the timing order
+    and the join window only remove rows, so this bounds every engine's
+    table over that pattern from above."""
+    import numpy as np
+
+    def down(v, via):
+        w = np.ones(n_v)
+        for e in pattern:
+            a, b = q.edges[e]
+            if e == via or v not in (a, b):
+                continue
+            src, dst = edges[e]
+            if a == v:
+                w *= np.bincount(src, weights=down(b, e)[dst], minlength=n_v)
+            else:
+                w *= np.bincount(dst, weights=down(a, e)[src], minlength=n_v)
+        return w
+
+    return float(down(q.edges[min(pattern)][0], None).sum())
+
+
+def sjtree_reckoning(q, plans, arrays, window: int, batch: int) -> dict:
+    """Upper bounds, over the ticks of ``batch`` edges of the stream
+    ``arrays`` (src, dst, ts, src_label, dst_label, edge_label; ts
+    non-decreasing), of every table of ``plans`` at ``window``: the most
+    rows a table holds before a tick's expiry (the edges live after the
+    last tick's expiry plus the tick's own) and the most rows it appends
+    in a tick (rows that use a new edge).  -> {"rows": [per table],
+    "appends": [per table], per plan in order}."""
+    import numpy as np
+
+    src, dst, ts, sl, dl, el = arrays
+    qe = {}
+    for e, (a, b) in enumerate(q.edges):
+        # the engine's label match (``edge_match_mask``): no self-loops,
+        # an edge label below 0 is a wildcard
+        lab = q.edge_labels[e]
+        qe[e] = np.flatnonzero((sl == q.vertex_labels[a])
+                               & (dl == q.vertex_labels[b])
+                               & ((el == lab) | (lab < 0)) & (src != dst))
+    pos = np.unique(np.concatenate([src[m] for m in qe.values()]
+                                   + [dst[m] for m in qe.values()]))
+    n_v = len(pos)
+    cs = {e: np.searchsorted(pos, src[m]) for e, m in qe.items()}
+    cd = {e: np.searchsorted(pos, dst[m]) for e, m in qe.items()}
+    patterns = sorted({p for plan in plans for p in _table_patterns(plan)},
+                      key=sorted)
+    rows = {p: 0.0 for p in patterns}
+    appends = {p: 0.0 for p in patterns}
+    t_prev = None
+    for lo in range(0, len(ts), batch):
+        hi = min(lo + batch, len(ts))
+        live, grown = {}, {}
+        for e, m in qe.items():
+            keep = m < hi
+            if t_prev is not None:
+                keep &= (m >= lo) | (ts[m] >= t_prev - window)
+            else:
+                keep &= m >= lo
+            old = keep & (m < lo)
+            grown[e] = (cs[e][keep], cd[e][keep])
+            live[e] = (cs[e][old], cd[e][old])
+        for p in patterns:
+            after = _hom_rows(q, p, grown, n_v)
+            rows[p] = max(rows[p], after)
+            appends[p] = max(appends[p], after - _hom_rows(q, p, live, n_v))
+        t_prev = int(ts[hi - 1])
+    return [{"rows": [rows[p] for p in _table_patterns(plan)],
+             "appends": [appends[p] for p in _table_patterns(plan)]}
+            for plan in plans]
+
+
+def _fits(reck, cap: int, max_new: int) -> bool:
+    return all(r <= cap for x in reck for r in x["rows"]) \
+        and all(a <= max_new for x in reck for a in x["appends"])
+
+
+def sjtree_window(q, arrays, batch: int, cap: int, max_new: int,
+                  hi: int) -> tuple:
+    """The largest window (timestamp units, at most ``hi``) at which every
+    table of the SJ-tree and of the timing-aware engine over ``q`` stays
+    within ``cap`` rows and ``max_new`` appends a tick, by bisection over
+    ``sjtree_reckoning``.  -> (window, its reckoning)."""
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.sjtree import compile_sjtree_plan
+
+    kw = dict(level_capacity=cap, l0_capacity=cap, max_new=max_new)
+
+    def reck(w):
+        return sjtree_reckoning(q, [compile_plan(q, w, **kw),
+                                    compile_sjtree_plan(q, w, **kw)[0]],
+                                arrays, w, batch)
+
+    lo, good = 1, reck(1)
+    if not _fits(good, cap, max_new):
+        fail(f"sjtree: no window keeps {q.edges}'s tables within {cap} "
+             f"rows and {max_new} appends")
+    while hi - lo > max(1, lo // 64):
+        mid = (lo + hi) // 2
+        r = reck(mid)
+        if _fits(r, cap, max_new):
+            lo, good = mid, r
+        else:
+            hi = mid
+    return lo, good
+
+
+def _canon(plan, res, trel=None):
+    """One tick's emitted matches as a multiset of rows in query-edge order
+    ((src, dst, ts) per query edge), post-filtered by ``trel`` (the
+    SJ-tree's) when given."""
+    from repro_torch.core.sjtree import timing_postfilter
+
+    bind, ets, valid = (x.cpu().numpy() for x in (
+        res.match_bindings, res.match_ets, res.match_valid))
+    if trel is not None:
+        valid = timing_postfilter(ets, valid, trel)
+    return _canon_rows(plan, bind[valid], ets[valid])
+
+
+def _canon_rows(plan, bind, ets) -> Counter:
+    import numpy as np
+
+    q = plan.query
+    vcol = {v: i for i, v in enumerate(plan.final_vertex_layout)}
+    ecol = {e: i for i, e in enumerate(plan.final_edge_layout)}
+    cols = []
+    for e, (a, b) in enumerate(q.edges):
+        cols += [bind[:, vcol[a]], bind[:, vcol[b]], ets[:, ecol[e]]]
+    rows = np.stack(cols, 1) if len(bind) else np.zeros((0, 3 * q.n_edges))
+    return Counter(map(tuple, rows.tolist()))
+
+
+def _sjtree_run(torch, plan, batches, trel=None, snap_at=None):
+    """Drive one engine (CUDA) over ``batches``: wall seconds (host clock,
+    one synchronise at the end; the per-tick table counts are device
+    reductions read after the run), the per-tick table rows, the
+    per-tick emitted multisets (post-filtered by ``trel``), the final
+    state, the state after ``snap_at`` ticks and the pair launches by
+    slot count."""
+    from repro_torch.core.engine import build_tick
+    from repro_torch.core.state import init_state, map_state
+    from repro_torch.kernels.compat_join import ops
+
+    tick = build_tick(plan, device=DEVICE)
+    state = init_state(plan, device=DEVICE)
+    state, _ = tick(state, batches[0])           # warm-up, not counted
+    state = init_state(plan, device=DEVICE)
+    _sync(torch)
+    ops.compat_join_pairs.launches_by_slots = Counter()
+    counts, results, snap = [], [], None
+    t0 = time.perf_counter()
+    for t, b in enumerate(batches):
+        state, res = tick(state, b)
+        counts.append(_table_rows(torch, state))
+        results.append(res)
+        if snap_at == t + 1:
+            snap = map_state(lambda x: x.clone(), state)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    by_slots = dict(ops.compat_join_pairs.launches_by_slots)
+    rows = torch.stack(counts).cpu().numpy()
+    emitted = [_canon(plan, r, trel) for r in results]
+    return wall, rows, emitted, state, snap, by_slots
+
+
+def phase_sjtree(torch, args, stream):
+    """The paper's headline comparison (Figures 14-17) on the card: the
+    SJ-tree baseline (``core.sjtree``: every edge its own leaf, timing
+    checked only by a host post-filter) against the timing-aware engine,
+    both through ``build_tick``/``init_state`` on the CUDA backend, for
+    the serve phase's two structures (``tenants()``'s chain and
+    two-chain), its capacities (65,536 rows, ``max_new`` 8,192) and its
+    stream, at three windows each: the largest window at which every
+    table of both engines stays within the capacities, reckoned on the
+    host before the run (``sjtree_window``: per-vertex label counts of the
+    stream, an upper bound), and its half and quarter.  Checks: overflow
+    0 in both; each tick's post-filtered SJ-tree matches equal the
+    timing-aware engine's as multisets, and the final current matches;
+    the CUDA SJ-tree's tables equal a REF run's over the first 16 ticks
+    at the largest window; every SJ-tree pair launch at S = 1, two per L0
+    join a tick.  Prints edges/s and the average live bytes a tick
+    (``mstree`` and ``ind`` for the timing-aware engine, ``ind`` for the
+    SJ-tree) at each window."""
+    import numpy as np
+
+    from repro_torch.core.engine import build_tick, current_matches, \
+        matches_from_rows
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.sjtree import compile_sjtree_plan, \
+        timing_postfilter
+    from repro_torch.core.state import init_state, make_batch
+    from repro_torch.stream.generator import to_batches
+
+    batches = [make_batch(**b, device=DEVICE)
+               for b in to_batches(stream, BATCH)]
+    arrays = tuple(np.array([getattr(e, k) for e in stream], np.int64)
+                   for k in ("src", "dst", "ts", "src_label", "dst_label",
+                             "edge_label"))
+    n_edges = len(stream)
+    kw = dict(level_capacity=LEVEL_CAP, l0_capacity=LEVEL_CAP,
+              max_new=MAX_NEW)
+    out = {"phase": "sjtree", "ticks": len(batches), "edges": n_edges,
+           "capacity": LEVEL_CAP, "max_new": MAX_NEW, "queries": []}
+    launches_sj, by_slots_sj, problems = 0, Counter(), []
+    for ti in SJTREE_TENANTS:
+        kind, q, _ = tenants(stream)[ti]
+        t0 = time.perf_counter()
+        w_max, reck = sjtree_window(q, arrays, BATCH, LEVEL_CAP, MAX_NEW,
+                                    int(arrays[2][-1] - arrays[2][0]) + 1)
+        qout = {"tenant": ti, "structure": kind,
+                "query_edges": [list(e) for e in q.edges],
+                "reckoning_s": time.perf_counter() - t0,
+                "window_max": w_max,
+                "reckoned_at_max": {
+                    "timing_rows": reck[0]["rows"],
+                    "timing_appends": reck[0]["appends"],
+                    "sjtree_rows": reck[1]["rows"],
+                    "sjtree_appends": reck[1]["appends"]},
+                "windows": []}
+        for div in SJTREE_SWEEP:
+            w = w_max // div
+            plan = compile_plan(q, w, **kw)
+            sj_plan, trel = compile_sjtree_plan(q, w, **kw)
+            pairs = max([js.capacity * js.max_new
+                         for js in sj_plan.l0_joins] or [0])
+            if pairs - MAX_NEW >= 2**31:
+                fail(f"sjtree: an L0 delta join of {pairs} pairs")
+            _free(torch)
+            t_wall, t_rows, t_emit, t_state, _, _ = _sjtree_run(
+                torch, plan, batches)
+            snap_at = SJTREE_REF_TICKS if div == 1 else None
+            s_wall, s_rows, s_emit, s_state, s_snap, s_slots = _sjtree_run(
+                torch, sj_plan, batches, trel, snap_at)
+            per_tick = 2 * len(sj_plan.l0_joins) * len(batches)
+            if s_slots != {1: per_tick}:
+                problems.append(f"sjtree {kind} w={w}: pair launches by "
+                                f"slots {s_slots}, not {{1: {per_tick}}}")
+            launches_sj += sum(s_slots.values())
+            by_slots_sj.update(s_slots)
+            ov = (int(t_state.stats.n_overflow), int(s_state.stats.n_overflow))
+            if ov != (0, 0):
+                problems.append(f"sjtree {kind} w={w}: overflow {ov}")
+            bad = [t for t, (a, b) in enumerate(zip(t_emit, s_emit)) if a != b]
+            if bad:
+                problems.append(f"sjtree {kind} w={w}: post-filtered matches "
+                                f"differ from the engine's at ticks {bad[:8]}")
+            tbl = s_state.l0[-1]
+            ok = timing_postfilter(tbl.ets.cpu().numpy(),
+                                   tbl.valid.cpu().numpy(), trel)
+            if matches_from_rows(sj_plan, tbl.bindings.cpu().numpy(),
+                                 tbl.ets.cpu().numpy(), ok) \
+                    != current_matches(plan, t_state):
+                problems.append(f"sjtree {kind} w={w}: current matches "
+                                "differ")
+            n_match = sum(sum(c.values()) for c in t_emit)
+            if div == 1:
+                # the REF SJ-tree over the first ticks: identical tables
+                ref_tick = build_tick(sj_plan, backend="ref", device=DEVICE)
+                rs = init_state(sj_plan, device=DEVICE)
+                for b in batches[:SJTREE_REF_TICKS]:
+                    rs, _ = ref_tick(rs, b)
+                a, b = _flat(s_snap), _flat(rs)
+                if len(a) != len(b) or not all(
+                        x.shape == y.shape and torch.equal(x, y)
+                        for x, y in zip(a, b)):
+                    problems.append(f"sjtree {kind}: CUDA tables after "
+                                    f"{SJTREE_REF_TICKS} ticks != REF")
+                qout["ref_leaves_equal"] = len(a)
+                del rs, s_snap
+            tb = {m: float((t_rows @ np.array(_row_bytes(plan, m))).mean())
+                  for m in ("mstree", "ind")}
+            sb = float((s_rows @ np.array(_row_bytes(sj_plan, "ind"))).mean())
+            qout["windows"].append({
+                "window": w, "matches": n_match,
+                "timing": {"edges_per_s": n_edges / t_wall, "wall_s": t_wall,
+                           "avg_bytes_mstree": tb["mstree"],
+                           "avg_bytes_ind": tb["ind"],
+                           "max_rows": t_rows.max(0).tolist()},
+                "sjtree": {"edges_per_s": n_edges / s_wall, "wall_s": s_wall,
+                           "avg_bytes_ind": sb,
+                           "max_rows": s_rows.max(0).tolist(),
+                           "pair_launches_by_slots": {
+                               str(k): v for k, v in s_slots.items()}},
+                "sjtree_over_timing_ind_bytes": sb / max(tb["ind"], 1.0),
+                "sjtree_over_timing_mstree_bytes":
+                    sb / max(tb["mstree"], 1.0),
+                "overflow": list(ov)})
+            del t_state, s_state, t_emit, s_emit
+        out["queries"].append(qout)
+    out["pair_launches_sjtree"] = launches_sj
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    _free(torch)
+    return out, launches_sj, dict(by_slots_sj)
+
+
 def _pctl(xs, q: float) -> float:
     """Nearest-rank percentile of ``xs``."""
     xs = sorted(xs)
@@ -2631,7 +3014,8 @@ def phase_recsys_serve(torch, seed: int):
 def make_products_graph(torch, seed: int):
     """The ogbn-products-shaped graph (``synth_products_like``: Pareto
     1.2 popularity, ``GIN_NODES`` nodes, ``GIN_DEGREE`` edges per node,
-    100 features, 47 classes), made on the host and moved to the card."""
+    100 features, 47 classes, the node labels), made on the host and
+    moved to the card."""
     from repro_torch.data.graphs import graph_to_device, synth_products_like
 
     t0 = time.perf_counter()
@@ -2639,8 +3023,8 @@ def make_products_graph(torch, seed: int):
                             d_feat=GIN_FEAT, n_classes=GIN_CLASSES,
                             seed=seed)
     make_s = time.perf_counter() - t0
-    g = graph_to_device({k: g[k] for k in ("x", "edge_src", "edge_dst")},
-                        DEVICE)
+    g = graph_to_device({k: g[k] for k in ("x", "edge_src", "edge_dst",
+                                           "labels")}, DEVICE)
     deg = torch.bincount(g["edge_dst"].long(), minlength=GIN_NODES)
     info = {"nodes": GIN_NODES, "edges": g["edge_src"].numel(),
             "host_make_s": make_s, "max_in_degree": int(deg.max())}
@@ -3390,6 +3774,515 @@ def phase_minibatch_infer(torch, seed: int, g, graph_info):
     return out, launches
 
 
+# --------------------------------------------------------------------- #
+# recsys_train / gnn_train: the train steps on the card
+# --------------------------------------------------------------------- #
+TRAIN_LR = 1e-3
+WD_TRAIN_BATCH = 65_536          # recsys_shapes train_batch
+WD_TRAIN_STEPS = 4               # timed steps after the compared one
+GNN_TRAIN_STEPS = 3
+
+
+def _adam_step(torch, st, count: int, cfg):
+    """A leaf's Adam step ``(m / c1) / (sqrt(v / c2) + eps)`` recomputed in
+    float64 from its state dict (fp32 ``v`` or factored ``vr``/``vc``)."""
+    c1, c2 = 1 - cfg.b1 ** count, 1 - cfg.b2 ** count
+    m = st["m"].double()
+    if "vr" in st:
+        vr, vc = st["vr"].double(), st["vc"].double()
+        den = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+        v = vr[..., :, None] * vc[..., None, :] / den[..., None]
+    else:
+        v = st["v"].double()
+    return (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+
+
+def _step_checks(torch, what, got, want, rel_tol: float, cfg) -> tuple:
+    """One train step from the same parameters and a zero AdamW state on
+    the kernel path (``got``) and the plain path (``want``), each
+    (params tree, opt state, loss, grad_norm): the loss and grad_norm
+    within ``rel_tol`` (relative); each leaf's gradient, read from its
+    first moment (``m = (1 - b1) clip(g)`` after one step), within
+    ``rel_tol`` of the leaf's largest entry; and each parameter within
+    ``lr |step_got - step_want|`` of the plain one plus 16 float32 ulps
+    of the update's operands (about 7 roundings a side: the step's five,
+    the decay, the product with lr and the difference), the steps
+    recomputed from each side's own
+    moments (Adam's first step is ``lr g / (|g| + eps)``: an entry whose
+    gradient sits within the tolerance of 0 can move by up to 2 lr).
+    Returns (fields, problems)."""
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    (gp, gs, gl, gn), (wp, ws, wl, wn) = got, want
+    problems = []
+    loss_rel = abs(float(gl) - float(wl)) / max(abs(float(wl)), 1e-30)
+    gn_rel = abs(float(gn) - float(wn)) / max(abs(float(wn)), 1e-30)
+    if not (loss_rel <= rel_tol and gn_rel <= rel_tol):
+        problems.append(f"{what}: loss / grad_norm rel err {loss_rel} / "
+                        f"{gn_rel} > {rel_tol}")
+    g_leaves, w_leaves = flatten(gp), flatten(wp)
+    g_st = flatten_up_to(gp, gs["leaves"])
+    w_st = flatten_up_to(wp, ws["leaves"])
+    grad_rel, param_ratio = 0.0, 0.0
+    for i in range(len(g_leaves)):
+        a, b = g_st[i]["m"], w_st[i]["m"]
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        grad_rel = max(grad_rel, err / max(scale, 1e-30))
+        if not err <= rel_tol * scale:
+            problems.append(f"{what}: leaf {i} gradient max |err| {err} > "
+                            f"{rel_tol} x {scale}")
+        sa = _adam_step(torch, g_st[i], 1, cfg)
+        sb = _adam_step(torch, w_st[i], 1, cfg)
+        p, q = g_leaves[i].detach().double(), w_leaves[i].detach().double()
+        tol = TRAIN_LR * (sa - sb).abs() \
+            + 16 * 2.0 ** -24 * (q.abs() + TRAIN_LR * (sb.abs() + 1))
+        ratio = float(((p - q).abs() / tol).max())
+        param_ratio = max(param_ratio, ratio)
+        if not ratio <= 1.0:
+            problems.append(f"{what}: leaf {i} parameters off their bound "
+                            f"(x{ratio})")
+    return {"loss": float(gl), "plain_loss": float(wl),
+            "loss_rel_err": loss_rel, "grad_norm": float(gn),
+            "plain_grad_norm": float(wn), "grad_norm_rel_err": gn_rel,
+            "grad_max_rel_err": grad_rel,
+            "param_err_over_bound": param_ratio,
+            "tolerance_rel": rel_tol}, problems
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of a parameter tree's leaves, in flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _snapshot(torch, params, state, leaves):
+    """Copies of the parameters ``leaves`` (flatten order) and their state
+    dicts: (params list, [{"leaves": ...}]), enough for ``_step_checks``."""
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    p = flatten(params)
+    st = flatten_up_to(params, state["leaves"])
+    return ([p[i].detach().clone() for i in leaves],
+            {"leaves": [{k: v.clone() for k, v in st[i].items()}
+                        for i in leaves]})
+
+
+WD_SAMPLE_FIELDS = (0, 19, 39)   # first, middle and last update chunk
+WD_SAMPLE_TOUCHED = 256
+WD_SAMPLE_UNTOUCHED = 64
+
+
+def _wd_sample_rows(torch, sparse_ids, vocab: int, seed: int):
+    """Rows of the stacked tables to hold against the plain step: for
+    each field of ``WD_SAMPLE_FIELDS``, ``WD_SAMPLE_TOUCHED`` rows the
+    batch reads (evenly spaced over its sorted ids) and
+    ``WD_SAMPLE_UNTOUCHED`` it does not (weight decay and the moments
+    still move them).  -> [fields, rows] int64 on the ids' device."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for f in WD_SAMPLE_FIELDS:
+        used = torch.unique(sparse_ids[:, f].long()).cpu()
+        touched = used[torch.linspace(0, len(used) - 1,
+                                      WD_SAMPLE_TOUCHED).long()]
+        cand = torch.randint(0, vocab, (8 * WD_SAMPLE_UNTOUCHED,),
+                             generator=gen)
+        cand = cand[~torch.isin(cand, used)].unique()
+        if len(touched.unique()) != WD_SAMPLE_TOUCHED \
+                or len(cand) < WD_SAMPLE_UNTOUCHED:
+            fail(f"recsys_train: field {f} gives too few sample rows")
+        out.append(torch.cat([touched, cand[:WD_SAMPLE_UNTOUCHED]]))
+    return torch.stack(out).to(sparse_ids.device)
+
+
+def _table_sample(torch, params, state, i: int, rows):
+    """The rows ``rows`` ([fields, R], ``_wd_sample_rows``) of the stacked
+    leaf ``i`` (flatten order) and of its first moment, with its second
+    moment reconstructed on those rows in float64 (the factored ``vr ⊗
+    vc / mean(vr)`` over the whole field): (param [F, R, D], {"m", "v"}),
+    a leaf as ``_snapshot`` gives it, for ``_step_checks``."""
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    st = flatten_up_to(params, state["leaves"])[i]
+    f = torch.tensor(WD_SAMPLE_FIELDS, device=rows.device)[:, None]
+    sample = {"m": st["m"][f, rows].clone()}
+    if "vr" in st:
+        den = torch.clamp(st["vr"][f[:, 0]].double().mean(-1), min=1e-30)
+        sample["v"] = (st["vr"][f, rows].double()[..., None]
+                       * st["vc"][f].double() / den[:, None, None])
+    else:
+        sample["v"] = st["v"][f, rows].clone()
+    return flatten(params)[i][f, rows].detach().clone(), sample
+
+
+def phase_recsys_train(torch, seed: int):
+    """Wide&Deep training at the published config (40 x 1,000,000 x 32
+    float32 tables, wide table 4,000,000, MLP 1024-512-256) on
+    ``train_batch`` (65,536 examples of ``recsys_batch``, 25% of wide ids
+    -1): ``make_recsys_train_step`` with AdamW in ``factored`` mode (the
+    reference's recsys cell; the stacked tables updated field by field).
+    First the wide gradient of ``bce_loss`` on the card (the embedding_bag
+    kernel's Function, its backward the segment_sum kernel): not None,
+    within the summation bound of the plain version's; then one step
+    held to the same step on the plain version (a second model from the
+    same seed, after the first is freed), and ``WD_TRAIN_STEPS`` timed
+    steps; the kernels' launches counted over the steps."""
+    import dataclasses
+
+    from repro_torch.configs.wide_deep import CONFIG
+    from repro_torch.data.recsys import batch_to_device, recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch.cells import make_recsys_train_step
+    from repro_torch.models.recsys.wide_deep import WideDeep, bce_loss
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    ocfg = AdamWConfig(state_mode="factored")
+    batch = batch_to_device(recsys_batch(
+        0, WD_TRAIN_BATCH, CONFIG.n_sparse, CONFIG.vocab_per_field,
+        CONFIG.n_dense, CONFIG.n_wide_crosses, seed=seed), DEVICE)
+    problems = []
+
+    def wide_grad(model):
+        loss, _ = bce_loss(model, batch)
+        loss.backward()
+        g = model.wide.grad
+        model.zero_grad(set_to_none=True)
+        return g
+
+    # -- the kernel path ------------------------------------------------
+    _free(torch)
+    _reset_peak(torch)
+    model = WideDeep(CONFIG, device=DEVICE, seed=seed)
+    if model.backend != "cuda":
+        fail(f"Wide&Deep's default backend is {model.backend}, not cuda")
+    names = _leaf_names(model.params())
+    held = [i for i, n in enumerate(names) if n != "tables"]
+    i_tables = names.index("tables")
+    rows = _wd_sample_rows(torch, batch["sparse_ids"], CONFIG.vocab_per_field,
+                           seed)
+    sr.segment_sum.launches = 0
+    g_wide = wide_grad(model)
+    if g_wide is None:
+        fail("recsys_train: bce_loss(...).backward() left model.wide.grad "
+             "None on the card")
+    if sr.segment_sum.launches != 1:
+        problems.append(f"recsys_train: the wide gradient launched "
+                        f"segment_sum {sr.segment_sum.launches} times, not 1")
+    with torch.no_grad():
+        logit = model(batch).float()
+    step = make_recsys_train_step(CONFIG, ocfg, TRAIN_LR)
+    opt = adamw_init(model.params(), ocfg)
+    _sync(torch)
+    peak_check = _peak_gib(torch)
+    _reset_peak(torch)
+    eb.embedding_bag.launches = sr.segment_sum.launches = 0
+    times = []
+    for k in range(1 + WD_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, opt, loss, gnorm = step(model, opt, batch)
+        _sync(torch)
+        times.append(time.perf_counter() - t0)
+        if k == 0:
+            first = (float(loss), float(gnorm)) + _snapshot(
+                torch, model.params(), opt, held)
+            tp, tst = _table_sample(torch, model.params(), opt, i_tables,
+                                    rows)
+            first[2].append(tp)
+            first[3]["leaves"].append(tst)
+    launches = {"embedding_bag": eb.embedding_bag.launches,
+                "segment_sum": sr.segment_sum.launches}
+    peak = _peak_gib(torch)
+    losses = [first[0]]
+    if launches != {"embedding_bag": 1 + WD_TRAIN_STEPS,
+                    "segment_sum": 1 + WD_TRAIN_STEPS}:
+        problems.append(f"recsys_train: {1 + WD_TRAIN_STEPS} steps launched "
+                        f"{launches}, not one of each a step")
+    del model, opt
+    _free(torch)
+
+    # -- the plain version, from the same seed ---------------------------
+    plain = WideDeep(dataclasses.replace(CONFIG, backend="ref"),
+                     device=DEVICE, seed=seed)
+    g_plain = wide_grad(plain)
+    # the summation bound of each row's k terms, plus the logits' own
+    # float32 difference (rtol 1e-5, as recsys_serve holds them)
+    ids = batch["wide_ids"].reshape(-1).long()
+    ok = ids >= 0
+    bags = torch.arange(WD_TRAIN_BATCH, device=DEVICE).repeat_interleave(
+        batch["wide_ids"].shape[1])
+    d_out = ((torch.sigmoid(logit) - batch["labels"].float())
+             / WD_TRAIN_BATCH).abs()
+    terms = torch.zeros_like(g_plain).index_add_(0, ids[ok], d_out[bags[ok]])
+    k = torch.zeros_like(g_plain).index_add_(
+        0, ids[ok], torch.ones_like(d_out[bags[ok]]))
+    bound = (k + 1) * 2.0 ** -24 * terms + 1e-5 * g_plain.abs()
+    wide_err = float((g_wide - g_plain).abs().max())
+    if not bool(((g_wide - g_plain).abs() <= bound).all()):
+        problems.append(f"recsys_train: the wide gradient differs from the "
+                        f"plain one past its bound (max |err| {wide_err})")
+    del g_wide, g_plain, terms, k, bound, logit
+    opt_p = adamw_init(plain.params(), ocfg)
+    _, opt_p, loss_p, gnorm_p = step(plain, opt_p, batch)
+    want = (float(loss_p), float(gnorm_p)) + _snapshot(
+        torch, plain.params(), opt_p, held)
+    tp, tst = _table_sample(torch, plain.params(), opt_p, i_tables, rows)
+    want[2].append(tp)
+    want[3]["leaves"].append(tst)
+    del plain, opt_p
+    _free(torch)
+    fields, more = _step_checks(
+        torch, "recsys_train", (first[2], first[3], first[0], first[1]),
+        (want[2], want[3], want[0], want[1]), 1e-5, ocfg)
+    problems += more
+    t_med = _pctl(times[1:], .5)
+    out = {"phase": "recsys_train", "config": CONFIG.name,
+           "batch": WD_TRAIN_BATCH, "optimizer": "adamw factored",
+           "steps": 1 + WD_TRAIN_STEPS, "step_s": times,
+           "step_s_median": t_med, "examples_per_s": WD_TRAIN_BATCH / t_med,
+           "peak_mem_gib": peak, "peak_mem_gib_wide_grad_check": peak_check,
+           "launches": launches,
+           "wide_grad_max_abs_err": wide_err,
+           "held_leaves": [names[i] for i in held] + [
+               f"tables[fields {list(WD_SAMPLE_FIELDS)}, "
+               f"{WD_SAMPLE_TOUCHED} rows read + {WD_SAMPLE_UNTOUCHED} not "
+               f"each]"], **fields}
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out, launches
+
+
+def _f32_tol(n_sums: int, d_max: int) -> float:
+    """The float32 step tolerance (relative): the kernel path and the
+    plain one differ in a step's ``n_sums`` segment sums (its launches),
+    each of at most ``d_max`` terms added in another order, a relative
+    error of ``d_max 2^-24`` each; a factor 8 of headroom, as
+    gat_infer's forward bound has."""
+    return 8 * n_sums * d_max * 2.0 ** -24
+
+
+def _train_case(torch, what, make, loss, g, rel_tol, steps, launches_per,
+                deterministic=False):
+    """One GNN case: a step on the kernel path and one on the plain path
+    (``make("ref")``) from the same seed, held by ``_step_checks`` (both
+    under ``torch.use_deterministic_algorithms`` where ``deterministic``:
+    GAT's bf16 softmax sums are ``index_add_`` atomics), then ``steps``
+    timed steps on the kernel path in the default mode, the segment_sum
+    launches counted over them (``launches_per`` a step)."""
+    import warnings
+
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch.cells import make_gnn_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    ocfg = AdamWConfig(state_mode="fp32")
+    step = make_gnn_train_step(None, loss, ocfg, TRAIN_LR)
+    runs = []
+    for backend in (None, "ref"):
+        _free(torch)
+        model = make(backend)
+        opt = adamw_init(model.params(), ocfg)
+        if deterministic:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                _, opt, l, gn = step(model, opt, g)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        runs.append((model.params(), opt, l, gn))
+        if backend is None:
+            kernel_model = model
+    fields, problems = _step_checks(torch, what, runs[0], runs[1], rel_tol,
+                                    ocfg)
+    del runs, model
+    opt = adamw_init(kernel_model.params(), ocfg)
+    step(kernel_model, opt, g)                   # warm-up, not counted
+    _sync(torch)
+    _reset_peak(torch)
+    sr.segment_sum.launches = 0
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, opt, l, _ = step(kernel_model, opt, g)
+        _sync(torch)
+        times.append(time.perf_counter() - t0)
+    launches = sr.segment_sum.launches
+    if launches != launches_per * steps:
+        problems.append(f"{what}: {steps} steps launched segment_sum "
+                        f"{launches} times, not {launches_per} a step")
+    if not bool(torch.isfinite(l)):
+        problems.append(f"{what}: the loss is not finite")
+    t_med = _pctl(times, .5)
+    fields.update(step_s=times, step_s_median=t_med,
+                  peak_mem_gib=_peak_gib(torch),
+                  segment_sum_launches=launches,
+                  segment_sum_launches_per_step=launches / steps)
+    del kernel_model, opt
+    _free(torch)
+    return fields, t_med, problems
+
+
+def phase_gnn_train(torch, seed: int, g, graph_info):
+    """The GNN zoo's train steps on the card (``make_gnn_train_step``,
+    AdamW fp32 as the reference's GNN cells, lr 1e-3), each held to the
+    same step on the plain version (``backend="ref"``, whose segment sums
+    accumulate in float64) by ``_step_checks``:
+
+      gin_products  GIN ``gin-tu`` at ``ogb_products`` by the reference
+                    cell's rule (100 features, 47 classes, bf16,
+                    ``remat=True``) on the products graph, node cross
+                    entropy over every node; tolerance 1e-2 relative:
+                    bf16 activations, one rounding per op, where the two
+                    paths' sums (float32 tiles, float64) round to
+                    neighbouring bf16 values;
+      gat_cora      GAT ``gat-cora`` at ``full_graph_sm`` (the Cora shape,
+                    float32); tolerance ``_f32_tol``: 8 n_sums d_max
+                    2^-24 relative, n_sums the step's segment sums and
+                    d_max the largest in-degree (float32 sums of at most
+                    d_max terms in another order);
+      gat_minibatch / pna_minibatch  GAT and PNA at ``minibatch_lg`` by
+                    the cell's rule (bf16, ``remat=True``) on the
+                    sampler's subgraph of the products graph (the cut of
+                    minibatch_infer); 1e-2 as GIN (GAT's compared steps
+                    in deterministic mode, as gat_infer's forwards);
+      nequip        NequIP ``nequip`` at the molecule shape on
+                    ``mse_loss`` against seeded target energies, float32;
+                    ``_f32_tol`` as GAT at Cora.
+
+    GAT and PNA are not trained at the products shape: GAT's second
+    layer's message alone is 46 GB and its gradient as large, and PNA's
+    forward already peaks at 34.86 GiB.  Prints each case's step time,
+    nodes/s (atoms/s), peak memory and segment_sum launches a step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.gat_cora import CONFIG as GAT_CFG
+    from repro_torch.configs.gin_tu import CONFIG as GIN_CFG
+    from repro_torch.configs.nequip import CONFIG as NQ_CFG
+    from repro_torch.configs.pna import CONFIG as PNA_CFG
+    from repro_torch.data.graphs import graph_to_device, synth_cora_like
+    from repro_torch.models.gnn import nequip as nq
+    from repro_torch.models.gnn.models import GAT, GIN, PNA, \
+        node_classification_loss
+    from repro_torch.models.gnn.sampler import CSRGraph, sample_subgraph
+
+    def gnn(cls, cfg):
+        def make(backend):
+            model = cls(cfg, device=DEVICE, seed=seed)
+            if backend is not None:
+                model.backend = backend
+            elif model.backend != "cuda":
+                fail(f"{cls.__name__}'s default backend is {model.backend}")
+            return model
+        return make
+
+    def big(config):          # the cell rule of ogb_products/minibatch_lg
+        return dataclasses.replace(_products_cfg(torch, config), remat=True)
+
+    out = {"phase": "gnn_train", "lr": TRAIN_LR, "optimizer": "adamw fp32",
+           "not_trained": "GAT and PNA at ogb_products: GAT's layer-2 "
+                          "message is 46 GB and its gradient as large; PNA's "
+                          "forward alone peaks at 34.86 GiB",
+           "cases": {}}
+    problems, launches = [], {}
+
+    def run(name, make, loss, graph, rel_tol, per_step, n_items, unit,
+            deterministic=False, **info):
+        fields, t_med, more = _train_case(
+            torch, f"gnn_train {name}", make, loss, graph, rel_tol,
+            GNN_TRAIN_STEPS, per_step, deterministic)
+        fields[f"{unit}_per_s"] = n_items / t_med
+        out["cases"][name] = {**info, **fields}
+        launches[name] = fields["segment_sum_launches"]
+        problems.extend(more)
+
+    # GIN at ogb_products: 5 forward sums, 5 recomputed, 4 gather
+    # gradients (layer 1's input needs none)
+    gin_cfg = big(GIN_CFG)
+    n = g["x"].shape[0]
+    run("gin_products", gnn(GIN, gin_cfg), node_classification_loss, g,
+        1e-2, 3 * gin_cfg.n_layers - 1, n, "nodes", config=gin_cfg.name,
+        dtype="bfloat16", remat=True, nodes=n,
+        edges=graph_info["edges"])
+
+    # GAT at Cora, float32: 2 forward sums a step and 3 gather gradients
+    # a layer (its scores' two and its message's)
+    cora = synth_cora_like(seed=seed)
+    cg = graph_to_device({k: cora[k] for k in ("x", "edge_src", "edge_dst",
+                                               "labels")}, DEVICE)
+    d_max = int(np.bincount(cora["edge_dst"][cora["edge_dst"] >= 0]).max())
+    run("gat_cora", gnn(GAT, GAT_CFG), node_classification_loss, cg,
+        _f32_tol(4 * GAT_CFG.n_layers, d_max), 4 * GAT_CFG.n_layers,
+        cora["x"].shape[0],
+        "nodes", config=GAT_CFG.name, dtype="float32", d_max=d_max)
+
+    # GAT and PNA at minibatch_lg on the sampler's subgraph (remat: the
+    # forward's sums again in the backward)
+    src = g["edge_src"].cpu().numpy()
+    dst = g["edge_dst"].cpu().numpy()
+    csr = CSRGraph(n, src, dst)
+    del src, dst
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(n, MINIBATCH_SEEDS, replace=False)
+    sub = sample_subgraph(csr, seeds, MINIBATCH_FANOUTS, rng)
+    del csr
+    nodes = torch.as_tensor(sub["nodes"], device=DEVICE).long()
+    sg = {"x": torch.where((nodes >= 0)[:, None], g["x"][nodes.clamp(min=0)],
+                           0),
+          "edge_src": torch.as_tensor(sub["edge_src"], device=DEVICE),
+          "edge_dst": torch.as_tensor(sub["edge_dst"], device=DEVICE),
+          "labels": torch.where(nodes >= 0, g["labels"][nodes.clamp(min=0)],
+                                0),
+          "label_mask": nodes >= 0}
+    n_sub = int((sub["nodes"] >= 0).sum())
+    # GAT's last layer recomputes no sum: non-reentrant checkpointing
+    # stops at the last tensor the backward needs, and the head mean
+    # after the last sum saves none; PNA's first layer gathers the input
+    # features, which need no gradient
+    for name, cls, config, per in (("gat_minibatch", GAT, GAT_CFG,
+                                    5 * GAT_CFG.n_layers - 1),
+                                   ("pna_minibatch", PNA, PNA_CFG,
+                                    5 * PNA_CFG.n_layers - 1)):
+        cfg = big(config)
+        run(name, gnn(cls, cfg), node_classification_loss, sg, 1e-2,
+            per, n_sub, "nodes",
+            deterministic=(cls is GAT), config=cfg.name, dtype="bfloat16",
+            remat=True, nodes=n_sub, seeds=MINIBATCH_SEEDS,
+            cut="the products graph sampled, as minibatch_infer")
+
+    # NequIP at the molecule shape: 3 sums a layer, forward only
+    mol = make_molecules(seed)
+    mol["energy"] = np.random.default_rng(seed + 1).standard_normal(
+        MOL_BATCH).astype(np.float32)
+    mg = graph_to_device(mol, DEVICE)
+    d_mol = int(np.bincount(mol["edge_dst"]).max())
+
+    def make_nq(backend):
+        model = nq.NequIP(NQ_CFG if backend is None else dataclasses.replace(
+            NQ_CFG, backend=backend), device=DEVICE, seed=seed)
+        if backend is None and model.cfg.backend != "cuda":
+            fail(f"NequIP's default backend is {model.cfg.backend}")
+        return model
+
+    run("nequip", make_nq,
+        lambda m, gr: nq.mse_loss(m.params(), gr, m.cfg), mg,
+        _f32_tol(3 * NQ_CFG.n_layers, d_mol), 3 * NQ_CFG.n_layers,
+        MOL_BATCH * MOL_ATOMS,
+        "atoms", config=NQ_CFG.name, dtype="float32", d_max=d_mol)
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out, launches
+
+
 _COMPARE_CHILD = """
 import argparse, json, os, sys
 import numpy as np
@@ -3534,10 +4427,13 @@ def main(argv=None) -> int:
     _free(torch)
     _, capacity_launches, capacity_by_slots = phase_capacity(torch, args,
                                                              stream)
+    _free(torch)
+    _, sjtree_launches, sjtree_by_slots = phase_sjtree(torch, args, stream)
     del stream
     _free(torch)
     bags = phase_embedding_bag(torch, args.seed)
     _, bag_launches = phase_recsys_serve(torch, args.seed)
+    _, train_launches = phase_recsys_train(torch, args.seed)
     graph, graph_info = make_products_graph(torch, args.seed)
     sums = phase_segment_sum(torch, args.seed, graph,
                              graph_info["max_in_degree"])
@@ -3549,6 +4445,9 @@ def main(argv=None) -> int:
     _, nequip_launches = phase_nequip_infer(torch, args.seed)
     _, minibatch_launches = phase_minibatch_infer(torch, args.seed, graph,
                                                   graph_info)
+    _free(torch)
+    _, gnn_train_launches = phase_gnn_train(torch, args.seed, graph,
+                                            graph_info)
     del graph
 
     def entry(name, source, replaces, launches, rows, timed, **extra):
@@ -3580,6 +4479,9 @@ def main(argv=None) -> int:
               launches_capacity=capacity_launches,
               launches_capacity_by_slots={
                   str(k): v for k, v in sorted(capacity_by_slots.items())},
+              launches_sjtree=sjtree_launches,
+              launches_sjtree_by_slots={
+                  str(k): v for k, v in sorted(sjtree_by_slots.items())},
               tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",
@@ -3588,6 +4490,7 @@ def main(argv=None) -> int:
         entry("embedding_bag", KERNEL_SOURCES["embedding_bag"],
               "src/repro/kernels/embedding_bag/kernel.py:59", bag_launches,
               bags, "wide_serve_bulk", launches_path="recsys_serve",
+              launches_recsys_train=train_launches["embedding_bag"],
               tolerance="rtol 1e-5, atol 1e-6; N(0,1) D = 32: rtol 1e-5 "
                         "+ 2 n 2^-24 sum|row| per element; integer D = 32: "
                         "equal"),
@@ -3598,6 +4501,8 @@ def main(argv=None) -> int:
               launches_gat=gat_launches, launches_pna=pna_launches,
               launches_nequip=nequip_launches,
               launches_minibatch=minibatch_launches,
+              launches_gnn_train=gnn_train_launches,
+              launches_embedding_bag_backward=train_launches["segment_sum"],
               tolerance="bf16: rtol 1e-2 + 2 deg 2^-24 sum|msg| per element; "
                         "float32 integer messages: equal"),
     ]})

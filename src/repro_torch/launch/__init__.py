@@ -1,2 +1,3 @@
 """Launch entry points of the port: ``stream_serve.StreamServer``, the
-one-tenant wrapper over the service."""
+one-tenant wrapper over the service, and the substrate models' train
+steps (``cells``)."""

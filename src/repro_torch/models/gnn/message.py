@@ -2,7 +2,8 @@
 port of ``repro.models.gnn.message``.
 
 Edges with src or dst < 0 are padding and contribute nothing.  Sum and
-mean go through the segment_sum kernel; max/min (``segment_extreme``),
+mean go through the segment_sum kernel, and so does the gradient of the
+gather ``x[src]`` (``gather_rows``); max/min (``segment_extreme``),
 ``segment_softmax``, ``degrees`` and the per-graph pooling
 (``pool_graphs``) are plain torch, as the reference's are plain JAX.
 """
@@ -14,13 +15,44 @@ import torch
 from repro_torch.kernels.segment_reduce import ops as sr
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x[max(idx, 0)]``, whose gradient in ``x`` is the transpose: a
+    segment sum of the rows' gradients over ``idx``, padding dropped."""
+
+    @staticmethod
+    def forward(ctx, x, idx, backend):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.backend = x.shape[0], backend
+        return x[idx.clamp(min=0)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (idx,) = ctx.saved_tensors
+        return sr.segment_sum(idx, grad, ctx.n_rows, ctx.backend), None, None
+
+
+def gather_rows(x, idx, backend: str | None = None):
+    """``x[idx]`` for ``x`` [N, D]: [E, D]; a padding index (< 0) reads
+    row 0, as the reference's clamped gather does, and its caller drops
+    that row (every sum and every weight of a padding edge ignores it).
+    The gradient ``grad_x[i] = sum of grad[e] over idx[e] == i`` runs on
+    the segment_sum kernel (``backend``) with the padding dropped: it
+    sums in float32 where the gather's own backward (``index_put_`` with
+    accumulate) sums in the rows' dtype, so a node of out-degree in the
+    millions keeps a bf16 gradient's small terms; and that backward
+    walks every duplicate of one row in turn (a padded minibatch's edges
+    all on row 0)."""
+    return _GatherRows.apply(x, idx, backend)
+
+
 def gather_scatter(x, edge_src, edge_dst, n_nodes: int,
                    transform=None, reduce: str = "sum",
                    backend: str | None = None):
     """out[dst] = reduce over edges of transform(x[src])."""
     src_ok = edge_src >= 0
-    msg = x[edge_src.clamp(min=0).long()]
-    msg.masked_fill_(~src_ok[:, None], 0)       # msg is a fresh gather
+    msg = gather_rows(x, edge_src, backend)   # padding dropped by dst below
     if transform is not None:
         msg = transform(msg)
     dst = torch.where(src_ok & (edge_dst >= 0), edge_dst, -1)

@@ -1,5 +1,6 @@
-"""GAT, GIN and PNA, the port of ``repro.models.gnn.models`` (inference:
-the forwards, node-level, and GIN's pooled per graph).
+"""GAT, GIN and PNA, the port of ``repro.models.gnn.models``: the
+forwards (node-level, and GIN's pooled per graph) and the training loss
+``node_classification_loss``.
 
 Graphs are dicts of tensors:
   x [N, F] node features; edge_src/edge_dst int32 [E] (-1 = padding);
@@ -9,8 +10,20 @@ Graphs are dicts of tensors:
 Every segment *sum* goes through the segment_sum kernel (``message.
 gather_scatter`` for GIN, ``sr.segment_sum`` for GAT's messages and
 PNA's sum and sum of squares); segment max/min and the attention
-softmax are plain torch, as the reference's are plain JAX.  The training
-loss waits for a later slice (ROADMAP.md, Queue A item 6.3).
+softmax are plain torch, as the reference's are plain JAX.  Every
+per-edge gather of node rows (GIN's ``x[src]``, GAT's scores and
+messages, PNA's row pairs) is ``message.gather_rows``, whose gradient is
+a segment sum on the same kernel: a hub's millions of bf16 gradient
+terms sum in float32, and the padding edges (index -1) add nothing,
+where ``index_put_``'s backward kernel walks every duplicate of one row
+in turn (a padded minibatch's edges clamped onto row 0 made it most of a
+GAT or PNA train step).
+
+``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+does.  The models take the reference's functional forwards' place:
+``node_classification_loss`` takes the module, and ``params()`` reads
+its parameters back as the reference's tree.
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.join import resolve_backend
 from repro_torch.core.state import resolve_device
@@ -27,6 +41,7 @@ from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.models.common import dense_init, params_from_numpy  # noqa: F401
 from repro_torch.models.gnn.message import (
     degrees,
+    gather_rows,
     gather_scatter,
     pool_graphs,
     segment_extreme,
@@ -53,9 +68,10 @@ class GNNConfig:
     n_rbf: int = 8
     cutoff: float = 5.0
     dtype: torch.dtype = torch.float32
-    # the reference's mesh_axes and remat (JAX sharding, jax.checkpoint)
-    # are not ported: a field the port adds comes after this marker
+    # the reference's mesh_axes (JAX sharding) is not ported: a field the
+    # port adds comes after this marker
     _: dataclasses.KW_ONLY
+    remat: bool = False          # recompute each layer in the backward
 
 
 def _module_params(tree: dict, device) -> nn.ParameterDict:
@@ -89,6 +105,21 @@ class _GNN(nn.Module):
     def _layer(self, lp, keys):
         return (lp[k].to(self.cfg.dtype) for k in keys)
 
+    def _apply(self, layer, x, *args):
+        """``layer(x, *args)``, recomputed in the backward under
+        ``cfg.remat``."""
+        if self.cfg.remat:
+            return checkpoint(layer, x, *args, use_reentrant=False)
+        return layer(x, *args)
+
+    def params(self) -> dict:
+        """The parameters as the reference's tree (the module's own
+        tensors, not copies)."""
+        tree = {"layers": [dict(lp.items()) for lp in self.layers]}
+        if hasattr(self, "readout"):
+            tree["readout"] = self.readout
+        return tree
+
 
 # --------------------------------------------------------------------- #
 # GAT
@@ -119,7 +150,8 @@ class GAT(_GNN):
 
     ``es``/``ed`` are computed per node and gathered per edge ([E, H]),
     where the reference gathers ``h[src]``/``h[dst]`` ([E, H, O]) for
-    them, and the one [E, H, O] gather (the message) is scaled in place:
+    them, and the one [E, H, O] gather (the message) is scaled in place
+    (the gathers are ``gather_rows``; a padding edge's weight is 0):
     at the ogbn-products shape the second layer's message alone is
     61 M x 8 x 47 bf16 = 46 GB, and a second one does not fit on the
     card."""
@@ -129,30 +161,35 @@ class GAT(_GNN):
 
     def forward(self, g: dict) -> torch.Tensor:
         x = g["x"].to(self.cfg.dtype)
-        n = x.shape[0]
         src, dst = g["edge_src"], g["edge_dst"]
         e_ok = (src >= 0) & (dst >= 0)
-        s, t = src.clamp(min=0).long(), dst.clamp(min=0).long()
         seg = torch.where(e_ok, dst, -1)
         for i, lp in enumerate(self.layers):
-            w, a_src, a_dst = self._layer(lp, self.KEYS)
-            h = torch.einsum("nf,fho->nho", x, w)             # [N, H, O]
-            score = F.leaky_relu(torch.einsum("nho,ho->nh", h, a_src)[s]
-                                 + torch.einsum("nho,ho->nh", h, a_dst)[t],
-                                 0.2)                           # [E, H]
-            score.masked_fill_(~e_ok[:, None], float("-inf"))
-            alpha = segment_softmax(score, seg, n)
-            del score
-            msg = h[s]                            # [E, H, O], a fresh gather
-            msg.mul_(alpha[..., None])            # scaled in place
-            del alpha
-            agg = sr.segment_sum(seg, msg.view(msg.shape[0], -1), n,
-                                 self.backend)
-            del msg
-            agg = agg.view(n, h.shape[1], -1)
-            x = agg.mean(1) if i == len(self.layers) - 1 \
-                else F.elu(agg.view(n, -1))
+            x = self._apply(self._gat_layer, x, lp, src, dst, e_ok, seg,
+                            i == len(self.layers) - 1)
         return x
+
+    def _gat_layer(self, x, lp, s, t, e_ok, seg, last: bool):
+        n = x.shape[0]
+        w, a_src, a_dst = self._layer(lp, self.KEYS)
+        h = torch.einsum("nf,fho->nho", x, w)                 # [N, H, O]
+        score = F.leaky_relu(
+            gather_rows(torch.einsum("nho,ho->nh", h, a_src), s,
+                        self.backend)
+            + gather_rows(torch.einsum("nho,ho->nh", h, a_dst), t,
+                          self.backend), 0.2)                   # [E, H]
+        score.masked_fill_(~e_ok[:, None], float("-inf"))
+        alpha = segment_softmax(score, seg, n)
+        del score
+        msg = gather_rows(h.view(n, -1), s, self.backend)     # a fresh gather
+        msg = msg.view(-1, *h.shape[1:])                      # [E, H, O]
+        msg.mul_(alpha[..., None])                # scaled in place
+        del alpha
+        agg = sr.segment_sum(seg, msg.view(msg.shape[0], -1), n,
+                             self.backend)
+        del msg
+        agg = agg.view(n, h.shape[1], -1)
+        return agg.mean(1) if last else F.elu(agg.view(n, -1))
 
 
 # --------------------------------------------------------------------- #
@@ -195,18 +232,21 @@ class GIN(_GNN):
 
     def forward(self, g: dict) -> torch.Tensor:
         x = g["x"].to(self.cfg.dtype)
-        n = x.shape[0]
         for lp in self.layers:
-            w1, w2, ln, eps = self._layer(lp, self.KEYS)
-            agg = gather_scatter(x, g["edge_src"], g["edge_dst"], n,
-                                 reduce="sum", backend=self.backend)
-            h = (1.0 + eps) * x + agg
-            h = torch.relu(h @ w1)
-            x = _norm_relu(h @ w2, ln)
+            x = self._apply(self._gin_layer, x, lp, g["edge_src"],
+                            g["edge_dst"])
         if "graph_ids" in g:
             x = pool_graphs(x, g["graph_ids"], g["n_graphs"])
         # the reference multiplies by the float32 readout: a float32 result
         return x.to(self.readout.dtype) @ self.readout
+
+    def _gin_layer(self, x, lp, src, dst):
+        w1, w2, ln, eps = self._layer(lp, self.KEYS)
+        agg = gather_scatter(x, src, dst, x.shape[0], reduce="sum",
+                             backend=self.backend)
+        h = (1.0 + eps) * x + agg
+        h = torch.relu(h @ w1)
+        return _norm_relu(h @ w2, ln)
 
 
 # --------------------------------------------------------------------- #
@@ -241,7 +281,8 @@ class PNA(_GNN):
     reference's float32 readout).
 
     ``concat(x[src], x[dst])`` is one gather of [E, 2] row pairs, so no
-    separate halves exist beside it."""
+    separate halves exist beside it (``gather_rows``; no sum reads a
+    padding edge's message)."""
 
     ARCH = "pna"
     KEYS = ("pre", "post", "ln")
@@ -252,39 +293,70 @@ class PNA(_GNN):
         n = x.shape[0]
         src, dst = g["edge_src"], g["edge_dst"]
         e_ok = (src >= 0) & (dst >= 0)
-        pair = torch.stack([src.clamp(min=0), dst.clamp(min=0)], 1).long()
+        pair = torch.stack([src, dst], 1).view(-1)            # [2E]
         seg = torch.where(e_ok, dst, -1)
         deg = degrees(dst, n).to(cfg.dtype)
         cnt = torch.clamp(deg[:, None], min=1.0)
         logd = torch.log1p(deg)[:, None]
         for lp in self.layers:
-            pre, post, ln = self._layer(lp, self.KEYS)
-            msg = torch.relu(x[pair].view(pair.shape[0], -1) @ pre)  # [E, H]
-            m_mean = sr.segment_sum(seg, msg, n, self.backend) / cnt
-            aggs = []
-            if "mean" in cfg.aggregators:
-                aggs.append(m_mean)
-            for red in ("max", "min"):
-                if red in cfg.aggregators:
-                    aggs.append(segment_extreme(seg, msg, n, red))
-            if "std" in cfg.aggregators:
-                sq = sr.segment_sum(seg, msg * msg, n, self.backend)
-                var = torch.clamp(sq / cnt - m_mean ** 2, min=0)
-                aggs.append(torch.sqrt(var + 1e-6))
-            del msg
-            scaled = []
-            for a in aggs:
-                for sc in cfg.scalers:
-                    if sc == "identity":
-                        scaled.append(a)
-                    elif sc == "amplification":
-                        scaled.append(a * (logd / cfg.delta))
-                    elif sc == "attenuation":
-                        scaled.append(
-                            a * (cfg.delta / torch.clamp(logd, min=1e-3)))
-            x = _norm_relu(torch.cat(scaled + [x], -1) @ post, ln)
+            x = self._apply(self._pna_layer, x, lp, pair, seg, cnt, logd)
         return x.to(self.readout.dtype) @ self.readout
+
+    def _pna_layer(self, x, lp, pair, seg, cnt, logd):
+        cfg, n = self.cfg, x.shape[0]
+        pre, post, ln = self._layer(lp, self.KEYS)
+        msg = torch.relu(gather_rows(x, pair, self.backend).view(
+            pair.shape[0] // 2, -1) @ pre)                    # [E, H]
+        m_mean = sr.segment_sum(seg, msg, n, self.backend) / cnt
+        aggs = []
+        if "mean" in cfg.aggregators:
+            aggs.append(m_mean)
+        for red in ("max", "min"):
+            if red in cfg.aggregators:
+                aggs.append(segment_extreme(seg, msg, n, red))
+        if "std" in cfg.aggregators:
+            sq = sr.segment_sum(seg, msg * msg, n, self.backend)
+            var = torch.clamp(sq / cnt - m_mean ** 2, min=0)
+            aggs.append(torch.sqrt(var + 1e-6))
+        del msg
+        scaled = []
+        for a in aggs:
+            for sc in cfg.scalers:
+                if sc == "identity":
+                    scaled.append(a)
+                elif sc == "amplification":
+                    scaled.append(a * (logd / cfg.delta))
+                elif sc == "attenuation":
+                    scaled.append(
+                        a * (cfg.delta / torch.clamp(logd, min=1e-3)))
+        return _norm_relu(torch.cat(scaled + [x], -1) @ post, ln)
 
 
 # --------------------------------------------------------------------- #
 INITS = {"gat": gat_init, "gin": gin_init, "pna": pna_init}
+
+
+def node_classification_loss(model: _GNN, g: dict):
+    """Node-level cross entropy of ``model(g)``; with ``graph_ids`` present
+    (batched small graphs), mean-pools node logits per graph and
+    classifies graphs instead (except GIN, whose forward already pools
+    through its readout).  ``label_mask`` (bool, optional) picks the
+    nodes or graphs counted.  -> (ce, {"ce": ce})."""
+    logits = model(g).float()
+    if "graph_ids" in g and logits.shape[0] != g["labels"].shape[0]:
+        pass  # GIN path: forward already pooled to graph level
+    elif "graph_ids" in g:
+        gid, ng = g["graph_ids"], g["n_graphs"]
+        tot = pool_graphs(logits, gid, ng)
+        cnt = pool_graphs(logits.new_ones((logits.shape[0], 1)), gid, ng)
+        logits = tot / torch.clamp(cnt, min=1)
+    labels = g["labels"] if "graph_ids" not in g else g["graph_labels"]
+    mask = g.get("label_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.bool,
+                          device=labels.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.where(mask, lse - ll, 0).sum() / torch.clamp(mask.sum(),
+                                                            min=1)
+    return ce, {"ce": ce}

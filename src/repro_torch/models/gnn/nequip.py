@@ -19,8 +19,9 @@ whose ``autograd.Function`` carries the forces' gradient back through it
 (``energy_and_forces``).  The per-graph energy pooling is plain
 ``index_add_``.  ``params`` is a tree of tensors in the reference's
 layout (``init`` or ``params_from_numpy``); ``NequIP`` holds one as an
-``nn.Module``.  The training loss (``mse_loss``) waits for a later slice
-(ROADMAP.md, Queue A item 6.3).
+``nn.Module``.  ``mse_loss`` is the training loss (energies only, so no
+double backward); ``cfg.remat`` recomputes each interaction layer in the
+backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.join import resolve_backend
 from repro_torch.core.state import resolve_device
@@ -69,9 +71,10 @@ class NequIPConfig:
     cutoff: float = 5.0
     n_species: int = 8
     radial_hidden: int = 64
-    # the reference's mesh_axes and remat are not ported
+    # the reference's mesh_axes (JAX sharding) is not ported
     _: dataclasses.KW_ONLY
     backend: str | None = None     # segment_sum: None = device default
+    remat: bool = False            # checkpoint each interaction layer
 
 
 def init(gen: torch.Generator, cfg: NequIPConfig, *, device=None) -> dict:
@@ -157,7 +160,7 @@ def forward(params: dict, g: dict, cfg: NequIPConfig):
                        pos[src.clamp(min=0).long()]
                        - pos[dst.clamp(min=0).long()], 1.0)
 
-    for lp in params["layers"]:
+    def layer(s, v, t, lp):
         ms, mv, mt = _messages(s, v, t, lp, src, dst, rvec, cfg)
         # self-interaction + residual
         s_new = s + ms @ lp["w_s"]
@@ -165,14 +168,30 @@ def forward(params: dict, g: dict, cfg: NequIPConfig):
         t_new = t + torch.einsum("ncij,cd->ndij", mt, lp["w_t"])
         # gate nonlinearity: scalars silu; v/t scaled by sigmoids
         gates = torch.sigmoid(s_new @ lp["w_gate"])        # [N, 2C]
-        s = F.silu(s_new) * lp["ln_s"]
-        v = v_new * gates[:, :c, None]
-        t = t_new * gates[:, c:, None, None]
+        return (F.silu(s_new) * lp["ln_s"], v_new * gates[:, :c, None],
+                t_new * gates[:, c:, None, None])
+
+    for lp in params["layers"]:
+        if cfg.remat:
+            s, v, t = checkpoint(layer, s, v, t, lp, use_reentrant=False)
+        else:
+            s, v, t = layer(s, v, t, lp)
 
     e_node = F.silu(s @ params["out1"]) @ params["out2"]  # [N, 1]
     if "graph_ids" in g:
         return pool_graphs(e_node[:, 0], g["graph_ids"], g["n_graphs"])
     return e_node[:, 0].sum()[None]
+
+
+def mse_loss(params: dict, g: dict, cfg: NequIPConfig):
+    """Mean squared error of the per-graph energies against
+    ``g["energy"]`` (0 where the batch has none) -> (mse, {"mse": mse})."""
+    e = forward(params, g, cfg)
+    target = g.get("energy")
+    if target is None:
+        target = torch.zeros_like(e)
+    l = torch.mean((e - target) ** 2)
+    return l, {"mse": l}
 
 
 def energy_and_forces(params: dict, g: dict, cfg: NequIPConfig):
@@ -212,7 +231,8 @@ class NequIP(nn.Module):
     def params(self) -> dict:
         """The parameters as the reference's tree (the module's own
         tensors, not copies)."""
-        return {"embed": self.embed, "layers": list(self.layers),
+        return {"embed": self.embed,
+                "layers": [dict(lp.items()) for lp in self.layers],
                 "out1": self.out1, "out2": self.out2}
 
     def forward(self, g: dict) -> torch.Tensor:

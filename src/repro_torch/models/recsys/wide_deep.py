@@ -1,17 +1,19 @@
 """Wide & Deep (Cheng et al. 2016) for CTR prediction: the port of
-``repro.models.recsys.wide_deep`` (serving: forward, loss, retrieval).
+``repro.models.recsys.wide_deep`` (forward, loss, retrieval).
 
 Deep side: 40 sparse categorical fields -> 32-dim embeddings (one table
 per field) concatenated with dense features -> MLP 1024-512-256 -> logit.
 The per-field gather is plain indexing, as in the reference, and the MLP
 is ``torch.matmul``.
 Wide side: hashed cross features into one wide table -> summed logit,
-through the embedding_bag kernel (multi-hot bags, D = 1).
+through the embedding_bag kernel (multi-hot bags, D = 1), whose gradient
+in the wide table runs on the segment_sum kernel.
 
 Parameters keep the reference's tree layout (``tables`` [F, V, D],
 ``wide`` [V], ``mlp`` [{w, b}], ``head``, ``bias``), so the reference's
-weights carry across with ``params_from_numpy``.  Sharding
-(``param_specs``) waits for the mesh slice.
+weights carry across with ``params_from_numpy``, and ``params()`` reads
+them back in that layout.  The reference's sharding specs
+(``param_specs``) are JAX sharding and are not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +86,14 @@ class WideDeep(nn.Module):
             [nn.Parameter(lp["b"].to(device)) for lp in params["mlp"]])
         self.head = nn.Parameter(params["head"].to(device))
         self.bias = nn.Parameter(params["bias"].to(device))
+
+    def params(self) -> dict:
+        """The parameters as the reference's tree (the module's own
+        tensors, not copies)."""
+        return {"tables": self.tables, "wide": self.wide,
+                "mlp": [{"w": w, "b": b}
+                        for w, b in zip(self.mlp_w, self.mlp_b)],
+                "head": self.head, "bias": self.bias}
 
     def forward(self, batch: dict) -> torch.Tensor:
         """batch: sparse_ids int32 [B, F], dense [B, n_dense], wide_ids

@@ -435,7 +435,14 @@ def test_port_baseline_loads_without_error_entries():
     doc = json.loads(PORT_BASELINE.read_text())
     assert doc["schema"] == "repro_analysis_baseline/v1"
     assert all(e.get("severity") != ERROR for e in doc["suppressions"])
-    assert all("Queue B item 1" in why for why in baseline.entries.values())
+    # each entry either names the roadmap item that removes it, or mirrors
+    # the reference's own baseline entry for the same symbol and rule
+    ref = {(e["rule"], e["symbol"]) for e in json.loads(
+        (ROOT / "analysis_baseline.json").read_text())["suppressions"]}
+    for e in doc["suppressions"]:
+        mirrored = (e["rule"], e["symbol"].replace("repro_torch.", "repro.", 1))
+        assert ("Queue B item 1" in e["justification"]
+                or mirrored in ref), e["symbol"]
 
 
 # --------------------------------------------------------------------- #

@@ -73,7 +73,10 @@ MODULES = [
     "repro_torch.analysis.kernel_check", "repro_torch.analysis.cli",
     "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.sampler",
     "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
-    "repro_torch.configs.nequip",
+    "repro_torch.configs.nequip", "repro_torch.core.sjtree",
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.compress", "repro_torch.optim.schedule",
+    "repro_torch.optim.tree", "repro_torch.launch.cells",
 ]
 
 

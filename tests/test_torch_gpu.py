@@ -19,6 +19,9 @@ messages held to one bf16 rounding plus the float32 summation bound.
 One embedding_bag call must be one device kernel.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -299,13 +302,23 @@ def test_pair_kernel_overflow_at_cell_boundaries(cuda, where):
     assert int(got[3][1]) == int(mask.sum()) - max_new > 0
 
 
+def _graph_ops(fn) -> dict:
+    """The device operations of one call of ``fn``, read without the
+    profiler (whose window can catch no launch): ``chip_smoke.py``'s
+    ``_graph_ops``, which captures the call into a CUDA graph that is
+    never run and lists its nodes.  -> {kernel name: nodes}."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_checks", Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs._graph_ops(torch, fn)
+
+
 def test_pair_call_launches_only_its_kernels(cuda):
     """One pair call is count, scan and emit and no other device
     operation (the outputs come straight from the kernels); one mask call
-    is one kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    is one kernel.  Read from a CUDA graph of one call (``_graph_ops``)."""
     rel, trel = CJ_SPECS[(2, 2, 1, 1)]
     args, win = _cj_case(cuda, "profile", 8, 4096, 1024, (2, 2, 1, 1), 20,
                          True, 40)
@@ -317,16 +330,8 @@ def test_pair_call_launches_only_its_kernels(cuda):
                        {"cj_count", "cj_scan", "cj_emit"}),
                       (lambda: ops.compat_mask(*args, rel, trel, win),
                        {"cj_mask"})):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-        keys = [e.key for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        found = {n for n in names if any(n in k for k in keys)}
-        assert len(keys) == len(names) and found == names, keys
+        keys = _graph_ops(fn)
+        assert keys == {n: 1 for n in names}, keys
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -427,10 +432,8 @@ def test_embedding_bag_kernel_edge_cases(cuda, case, d, dtype):
 
 @pytest.mark.parametrize("d", [1, 32])
 def test_embedding_bag_launches_one_device_kernel(cuda, d):
-    """One wrapper call is one device kernel (no scratch pass, no copy)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One wrapper call is one device kernel (no scratch pass, no copy),
+    read from a CUDA graph of one call (``_graph_ops``)."""
     n_bags = 512
     ids = torch.randint(-1, 1000, (n_bags * 16,), device=cuda,
                         dtype=torch.int32)
@@ -439,17 +442,9 @@ def test_embedding_bag_launches_one_device_kernel(cuda, d):
     table = torch.randn((1000, d), device=cuda)
     eb_ops.embedding_bag(ids, bags, table, n_bags)         # build, warm up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(5):
-            eb_ops.embedding_bag(ids, bags, table, n_bags)
-        torch.cuda.synchronize()
-    # the profiler may miss a launch, never add one
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    assert len(kernels) == 1 and "eb_bag_sum" in kernels[0].key, \
-        [e.key for e in kernels]
-    assert 1 <= kernels[0].count <= 5
+    kernels = _graph_ops(lambda: eb_ops.embedding_bag(ids, bags, table,
+                                                      n_bags))
+    assert kernels == {"eb_bag_sum": 1}, kernels
 
 
 def _sr_check(dst, msg, n):
@@ -996,3 +991,194 @@ def test_analysis_kernel_routes_and_device_limits_on_card(cuda):
     limits = KC.device_limits(0)
     assert limits["sm_count"] > 0 and limits["smem_per_block_optin"] > 0
     assert [f.format() for f in KC.check_device_limits(limits)] == []
+
+
+# --------------------------------------------------------------------- #
+# training and the SJ-tree on the card
+# --------------------------------------------------------------------- #
+def test_bce_loss_gradients_on_card_equal_plain(cuda):
+    """Wide&Deep's ``bce_loss`` backward on the card: the wide table gets a
+    gradient (the embedding_bag kernel's Function, its backward one
+    segment_sum launch) equal to the plain version's within the summation
+    bound, and every other gradient within float32 noise."""
+    import dataclasses
+
+    from repro_torch.configs import wide_deep
+    from repro_torch.data.recsys import batch_to_device, recsys_batch
+    from repro_torch.models.recsys.wide_deep import WideDeep, bce_loss
+
+    cfg = dataclasses.replace(wide_deep.smoke_config(), wide_vocab=5000,
+                              n_wide_crosses=16)
+    batch = batch_to_device(recsys_batch(0, 2048, cfg.n_sparse,
+                                         cfg.vocab_per_field, cfg.n_dense,
+                                         cfg.n_wide_crosses, seed=3), cuda)
+    grads = []
+    for backend in (None, "ref"):
+        model = WideDeep(dataclasses.replace(cfg, backend=backend),
+                         device=cuda, seed=4)
+        eb0, sr0 = eb_ops.embedding_bag.launches, sr_ops.segment_sum.launches
+        bce_loss(model, batch)[0].backward()
+        if backend is None:
+            assert eb_ops.embedding_bag.launches == eb0 + 1
+            assert sr_ops.segment_sum.launches == sr0 + 1
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    got, want = grads
+    assert got["wide"] is not None and bool(got["wide"].abs().sum() > 0)
+    for n in want:
+        torch.testing.assert_close(got[n], want[n], rtol=1e-5,
+                                   atol=1e-6 * float(want[n].abs().max()))
+
+
+def test_sjtree_on_card_equals_ref(cuda):
+    """A small SJ-tree (the serve phase's two-chain, every edge its own
+    leaf) on the CUDA backend ticks bit-identically to the REF backend on
+    the card, and its post-filtered matches equal the timing-aware
+    engine's, tick by tick."""
+    from collections import Counter
+
+    from repro_torch.core.engine import build_tick, matches_from_rows
+    from repro_torch.core.sjtree import compile_sjtree_plan, \
+        timing_postfilter
+    from repro_torch.core.state import init_state
+
+    q = QueryGraph(5, (0, 0, 1, 0, 1), ((0, 1), (1, 2), (0, 3), (3, 4)),
+                   prec=frozenset({(0, 1), (2, 3)}))
+    cap = dict(level_capacity=4096, l0_capacity=4096, max_new=2048)
+    plan = compile_plan(q, 60, **cap)
+    sj_plan, trel = compile_sjtree_plan(q, 60, **cap)
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=1200, n_vertices=100, n_vertex_labels=2, n_edge_labels=2,
+        seed=5, ts_step_max=2))
+    ticks = [build_tick(p, backend=b, device=cuda)
+             for p, b in ((sj_plan, "cuda"), (sj_plan, "ref"),
+                          (plan, "cuda"))]
+    states = [init_state(p, device=cuda) for p in (sj_plan, sj_plan, plan)]
+
+    def emitted(p, res, tr=None):
+        bind, ets, valid = (x.cpu().numpy() for x in (
+            res.match_bindings, res.match_ets, res.match_valid))
+        if tr is not None:
+            valid = timing_postfilter(ets, valid, tr)
+        out = Counter()
+        for r in np.nonzero(valid)[0]:
+            out.update(matches_from_rows(p, bind[r:r + 1], ets[r:r + 1],
+                                         np.ones(1, bool)))
+        return out
+
+    total = 0
+    for b in to_batches(stream, 64):
+        batch = make_batch(**b, device=cuda)
+        res = []
+        for k, tick in enumerate(ticks):
+            states[k], r = tick(states[k], batch)
+            res.append(r)
+        for x, y in zip(_leaves(states[0]), _leaves(states[1])):
+            assert torch.equal(x, y)
+        assert int(states[0].stats.n_overflow) == 0
+        got = emitted(sj_plan, res[0], trel)
+        assert got == emitted(plan, res[2])
+        total += sum(got.values())
+    assert total > 0
+    assert int(states[0].stats.n_overflow) == int(states[2].stats.n_overflow) \
+        == 0
+
+
+@pytest.mark.parametrize("arch", ["gin", "gat", "pna", "nequip", "wide_deep"])
+def test_train_step_on_card_equals_plain(cuda, arch):
+    """One train step of each model family (smoke configs, float32) on the
+    card equals the same step on the plain version: loss and grad_norm
+    within rtol 1e-5, the gradient (the first moment after one step)
+    within 1e-4 of each leaf's largest entry, the parameters within Adam's
+    first-step map of that difference (lr |step_a - step_b|) plus 16
+    float32 ulps."""
+    import dataclasses
+
+    from repro_torch.configs import gat_cora, gin_tu, nequip, pna, wide_deep
+    from repro_torch.data.recsys import batch_to_device, recsys_batch
+    from repro_torch.launch.cells import make_gnn_train_step, \
+        make_recsys_train_step
+    from repro_torch.models.gnn import nequip as NQ
+    from repro_torch.models.gnn.models import GAT, GIN, PNA, \
+        node_classification_loss
+    from repro_torch.models.recsys.wide_deep import WideDeep
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    lr = 1e-3
+    if arch == "wide_deep":
+        ocfg = AdamWConfig(state_mode="factored")
+        cfg = wide_deep.smoke_config()
+        g = batch_to_device(recsys_batch(0, 512, cfg.n_sparse,
+                                         cfg.vocab_per_field, cfg.n_dense,
+                                         cfg.n_wide_crosses, seed=1), cuda)
+        step = make_recsys_train_step(cfg, ocfg, lr)
+
+        def make(backend):
+            return WideDeep(dataclasses.replace(cfg, backend=backend),
+                            device=cuda, seed=2)
+    elif arch == "nequip":
+        ocfg = AdamWConfig(state_mode="fp32")
+        cfg = nequip.smoke_config()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        n = 8 * 10
+        mol = torch.arange(n, device=cuda) // 10
+        src, dst = torch.nonzero((mol[:, None] == mol[None])
+                                 & ~torch.eye(n, dtype=torch.bool,
+                                              device=cuda), as_tuple=True)
+        g = {"species": torch.randint(0, cfg.n_species, (n,), generator=gen,
+                                      device=cuda),
+             "pos": torch.rand((n, 3), generator=gen, device=cuda) * 5,
+             "edge_src": src.int(), "edge_dst": dst.int(),
+             "graph_ids": mol.int(), "n_graphs": 8,
+             "energy": torch.randn((8,), generator=gen, device=cuda)}
+        step = make_gnn_train_step(
+            cfg, lambda m, gr: NQ.mse_loss(m.params(), gr, m.cfg), ocfg, lr)
+
+        def make(backend):
+            return NQ.NequIP(dataclasses.replace(cfg, backend=backend),
+                             device=cuda, seed=4)
+    else:
+        ocfg = AdamWConfig(state_mode="fp32")
+        mod, cls = {"gin": (gin_tu, GIN), "gat": (gat_cora, GAT),
+                    "pna": (pna, PNA)}[arch]
+        cfg = dataclasses.replace(mod.smoke_config(), d_in=16)
+        g = _gnn_graph(cuda)
+        g["labels"] = torch.randint(0, cfg.n_classes, (g["x"].shape[0],),
+                                    device=cuda)
+        step = make_gnn_train_step(cfg, node_classification_loss, ocfg, lr)
+
+        def make(backend):
+            model = cls(cfg, device=cuda, seed=5)
+            if backend is not None:
+                model.backend = backend
+            return model
+    runs = []
+    for backend in (None, "ref"):
+        model = make(backend)
+        opt = adamw_init(model.params(), ocfg)
+        _, opt, loss, gnorm = step(model, opt, g)
+        runs.append((flatten(model.params()),
+                     flatten_up_to(model.params(), opt["leaves"]),
+                     float(loss), float(gnorm)))
+    (gp, gs, gl, gn), (wp, ws, wl, wn) = runs
+    assert gl == pytest.approx(wl, rel=1e-5)
+    assert gn == pytest.approx(wn, rel=1e-5)
+
+    def adam(st):
+        c1, c2 = 1 - ocfg.b1, 1 - ocfg.b2
+        m = st["m"].double()
+        if "vr" in st:
+            vr, vc = st["vr"].double(), st["vc"].double()
+            den = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+            v = vr[..., :, None] * vc[..., None, :] / den[..., None]
+        else:
+            v = st["v"].double()
+        return (m / c1) / (torch.sqrt(v / c2) + ocfg.eps)
+
+    for p, q, a, b in zip(gp, wp, gs, ws):
+        scale = float(b["m"].abs().max())
+        assert float((a["m"] - b["m"]).abs().max()) <= 1e-4 * scale
+        sa, sb = adam(a), adam(b)
+        tol = lr * (sa - sb).abs() \
+            + 16 * 2.0 ** -24 * (q.double().abs() + lr * (sb.abs() + 1))
+        assert bool(((p.double() - q.double()).abs() <= tol).all())

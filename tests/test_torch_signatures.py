@@ -37,10 +37,13 @@ JAX_ONLY = {"jit": "jax.jit compilation", "donate": "jit buffer donation",
             "interpret": "Pallas interpret mode"}
 # same slot, another type, where the port's name may differ: a JAX PRNG
 # key is a torch.Generator in the port (a numpy Generator keeps its
-# name), and the Wide&Deep loss takes the port's nn.Module (which holds
-# the params and the config) where the reference takes its params tree
+# name), and the Wide&Deep and GNN losses take the port's nn.Module
+# (which holds the params and the config) where the reference takes its
+# params tree
 RENAMED = {"rng": "gen"}
-RENAMED_IN = {"models.recsys.wide_deep.bce_loss": {"params": "model"}}
+RENAMED_IN = {"models.recsys.wide_deep.bce_loss": {"params": "model"},
+              "models.gnn.models.node_classification_loss":
+                  {"params": "model"}}
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
               inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -351,3 +354,42 @@ def test_forest_total_overflow_equals_reference():
                          seen.append(svc.forest.total_overflow()), **serve)
         totals.append(seen)
     assert totals[1] == totals[0] and totals[1][-1] > 0
+
+
+TRAINING_CALLABLES = [
+    ("core.sjtree", "strip_timing"), ("core.sjtree", "compile_sjtree_plan"),
+    ("core.sjtree", "timing_postfilter"), ("optim.adamw", "AdamWConfig"),
+    ("optim.adamw", "adamw_init"), ("optim.adamw", "adamw_update"),
+    ("optim.adamw", "global_norm"), ("optim.compress", "quantize_tree"),
+    ("optim.compress", "dequantize_tree"),
+    ("optim.compress", "compressed_psum"),
+    ("optim.schedule", "cosine_with_warmup"),
+    ("models.gnn.models", "node_classification_loss"),
+    ("models.gnn.nequip", "mse_loss"),
+    ("launch.cells", "make_gnn_train_step"),
+    ("launch.cells", "make_recsys_train_step"),
+]
+
+
+@pytest.mark.parametrize("rel,name", TRAINING_CALLABLES,
+                         ids=[f"{r}.{n}" for r, n in TRAINING_CALLABLES])
+def test_the_walk_reaches_the_sjtree_and_training_callables(rel, name):
+    """Not vacuous: the SJ-tree, the optimiser, the losses and the train
+    steps are shared callables the walk compares, and each follows the
+    reference's positional order (the GNN loss with its module in the
+    params slot)."""
+    found = {n: (r, t) for n, r, t in shared_callables(rel)}
+    assert name in found
+    r, t = found[name]
+    assert follows(_positional(t), _positional(r), f"{rel}.{name}")
+
+
+def test_remat_is_keyword_only():
+    """``remat``, the reference's last positional config field, comes
+    after the port's keyword-only marker on both GNN configs."""
+    from repro_torch.models.gnn.models import GNNConfig
+    from repro_torch.models.gnn.nequip import NequIPConfig
+
+    for cls in (GNNConfig, NequIPConfig):
+        p = inspect.signature(cls).parameters["remat"]
+        assert p.kind == inspect.Parameter.KEYWORD_ONLY and p.default is False

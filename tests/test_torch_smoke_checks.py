@@ -174,3 +174,180 @@ def test_infer_checks_flag_each_fault():
     nan[1, 1] = float("nan")
     assert cs._infer_checks(torch, "m", nan, want, (50, 4), 6, 6)[1]
     assert cs._infer_checks(torch, "m", want, want, (50, 5), 6, 6)[1]
+
+
+def _small_sjtree_case():
+    """The serve phase's two structures over a small CAIDA-like stream
+    (dense enough to fill the tables in 16 ticks of 64 edges)."""
+    from repro.core.query import QueryGraph
+    from repro.stream.generator import StreamConfig, synth_traffic_stream
+
+    stream = synth_traffic_stream(StreamConfig(
+        n_edges=1024, n_vertices=40, n_vertex_labels=3, n_edge_labels=2,
+        seed=2, ts_step_max=2))
+    queries = {
+        "chain": QueryGraph(4, (0, 1, 2, 0), ((0, 1), (1, 2), (2, 3)),
+                            edge_labels=(0, 1, 0),
+                            prec=frozenset({(0, 1), (1, 2)})),
+        "two_chain": QueryGraph(5, (0, 1, 2, 1, 0),
+                                ((0, 1), (1, 2), (0, 3), (3, 4)),
+                                prec=frozenset({(0, 1), (2, 3)}))}
+    return stream, queries
+
+
+@pytest.mark.parametrize("name", ["chain", "two_chain"])
+def test_state_bytes_is_the_benchmark_formula(name):
+    """``chip_smoke``'s bytes a tick, its table rows (``_table_rows``)
+    times their bytes (``_row_bytes``: its own copy of the formula, since
+    the script may not import ``benchmarks.common``, which imports JAX),
+    equal ``benchmarks.common.state_bytes`` on the same states: the JAX
+    engine and the port's (bit-identical on REF), tick by tick, for the
+    timing-aware plan and the SJ-tree plan, in both storage models."""
+    import sys
+
+    import jax
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.common import state_bytes as ref_state_bytes
+    from repro.core import compile_plan as ref_compile_plan
+    from repro.core.engine import build_tick as ref_build_tick
+    from repro.core.sjtree import compile_sjtree_plan as ref_sjtree
+    from repro.core.state import init_state as ref_init_state
+    from repro.core.state import make_batch as ref_make_batch
+    from repro.stream.generator import to_batches
+
+    from _torch_util import port_query
+    from repro_torch.core.engine import build_tick
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.sjtree import compile_sjtree_plan
+    from repro_torch.core.state import init_state, make_batch
+
+    stream, queries = _small_sjtree_case()
+    q = queries[name]
+    cap = dict(level_capacity=512, l0_capacity=512, max_new=256)
+    plans = [(ref_compile_plan(q, 40, **cap),
+              compile_plan(port_query(q), 40, **cap)),
+             (ref_sjtree(q, 40, **cap)[0],
+              compile_sjtree_plan(port_query(q), 40, **cap)[0])]
+    seen = 0
+    for rp, tp in plans:
+        jtick, ttick = jax.jit(ref_build_tick(rp)), build_tick(tp,
+                                                              device="cpu")
+        js, ts = ref_init_state(rp), init_state(tp, device="cpu")
+        for b in to_batches(stream, 64):
+            js, _ = jtick(js, ref_make_batch(**b))
+            ts, _ = ttick(ts, make_batch(**b, device="cpu"))
+            rows = cs._table_rows(torch, ts).tolist()
+            for mode in ("mstree", "ind"):
+                want = ref_state_bytes(rp, js, mode)
+                assert sum(r * b for r, b in zip(
+                    rows, cs._row_bytes(tp, mode))) == want
+                seen += want > 0
+        assert len(cs._row_bytes(tp, "ind")) == len(rows) == \
+            len(cs._table_patterns(tp))
+    assert seen > 0
+
+
+@pytest.mark.parametrize("name", ["chain", "two_chain"])
+def test_sjtree_window_bounds_the_engines(name):
+    """The window reckoning on a small stream: ``_hom_rows`` counts a
+    pattern's homomorphisms (checked by brute force on a 2-edge path);
+    at the reckoned largest window both engines (REF, CPU) run without
+    overflow, every table's live rows stay under its reckoned bound and
+    within the capacity, and just past that window the reckoning no
+    longer fits."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from _torch_util import port_query
+    from repro_torch.core.engine import build_tick
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.core.sjtree import compile_sjtree_plan
+    from repro_torch.core.state import init_state, make_batch
+    from repro.stream.generator import to_batches
+
+    stream, queries = _small_sjtree_case()
+    q = port_query(queries[name])
+    arrays = tuple(np.array([getattr(e, k) for e in stream], np.int64)
+                   for k in ("src", "dst", "ts", "src_label", "dst_label",
+                             "edge_label"))
+    # brute force: homomorphisms of edges {0, 1} (a -> b -> c)
+    src, dst = arrays[0][:200], arrays[1][:200]
+    e0 = [(s, d) for s, d in zip(src, dst)]
+    brute = sum(1 for (a, b), (c, d) in itertools.product(e0, e0) if b == c)
+    n_v = int(max(src.max(), dst.max())) + 1
+    path = type(q)(3, (0, 0, 0), ((0, 1), (1, 2)))
+    assert cs._hom_rows(path, frozenset({0, 1}), {0: (src, dst),
+                                                  1: (src, dst)}, n_v) == brute
+    cap, max_new, batch = 1024, 512, 64
+    w, reck = cs.sjtree_window(q, arrays, batch, cap, max_new,
+                               int(arrays[2][-1]) + 1)
+    kw = dict(level_capacity=cap, l0_capacity=cap, max_new=max_new)
+    plans = [compile_plan(q, w, **kw), compile_sjtree_plan(q, w, **kw)[0]]
+    assert 0 < w and reck == cs.sjtree_reckoning(q, plans, arrays, w, batch)
+    for plan, r in zip(plans, reck):
+        tick, state = build_tick(plan, device="cpu"), init_state(
+            plan, device="cpu")
+        most = np.zeros(len(r["rows"]))
+        for b in to_batches(stream, batch):
+            state, _ = tick(state, make_batch(**b, device="cpu"))
+            most = np.maximum(most, cs._table_rows(torch, state).numpy())
+        assert int(state.stats.n_overflow) == 0
+        assert (most <= np.array(r["rows"])).all() and (most <= cap).all()
+        assert most.max() > 0
+    step = max(1, w // 64)
+    wider = [compile_plan(q, w + 2 * step, **kw),
+             compile_sjtree_plan(q, w + 2 * step, **kw)[0]]
+    assert not cs._fits(cs.sjtree_reckoning(q, wider, arrays, w + 2 * step,
+                                            batch), cap, max_new)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "factored"])
+def test_table_sample_is_the_leaf_on_its_rows(mode):
+    """``recsys_train`` holds the stacked tables to the plain step on a
+    sample of rows: ``_wd_sample_rows`` gives, per sampled field, rows
+    the batch reads and rows it does not, and ``_table_sample`` gives
+    the parameter, the first moment and the second moment (reconstructed
+    from the factored ``vr``/``vc`` over the whole field) on exactly
+    those rows after an AdamW step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    vocab, batch = 3000, 1000
+    rng = np.random.default_rng(3)
+    ids = torch.tensor(rng.integers(0, vocab, (batch, 40)), dtype=torch.int32)
+    rows = cs._wd_sample_rows(torch, ids, vocab, 0)
+    n = cs.WD_SAMPLE_TOUCHED + cs.WD_SAMPLE_UNTOUCHED
+    assert rows.shape == (len(cs.WD_SAMPLE_FIELDS), n)
+    for j, f in enumerate(cs.WD_SAMPLE_FIELDS):
+        used = set(ids[:, f].tolist())
+        assert len(set(rows[j].tolist())) == n
+        assert all(r in used for r in rows[j, :cs.WD_SAMPLE_TOUCHED].tolist())
+        assert not any(r in used
+                       for r in rows[j, cs.WD_SAMPLE_TOUCHED:].tolist())
+
+    cfg = AdamWConfig(state_mode=mode)
+    params = {"tables": torch.tensor(
+        rng.standard_normal((40, vocab, 8)), dtype=torch.float32)}
+    state = adamw_init(params, cfg)
+    grads = {"tables": torch.tensor(
+        rng.standard_normal((40, vocab, 8)), dtype=torch.float32)}
+    _, state, _ = adamw_update(grads, state, params, 1e-3, cfg)
+    p, st = cs._table_sample(torch, params, state, 0, rows)
+    f = torch.tensor(cs.WD_SAMPLE_FIELDS)[:, None]
+    full = state["leaves"]["tables"]
+    assert torch.equal(p, params["tables"][f, rows])
+    assert torch.equal(st["m"], full["m"][f, rows])
+    if mode == "factored":
+        vr, vc = full["vr"].double(), full["vc"].double()
+        v = vr[:, :, None] * vc[:, None, :] / vr.mean(-1)[:, None, None]
+    else:
+        v = full["v"].double()
+    torch.testing.assert_close(st["v"].double(), v[f, rows], rtol=1e-12,
+                               atol=0)

@@ -201,15 +201,41 @@ exit, nothing is caught and skipped):
                 (bf16, remat), NequIP ``mse_loss`` on the molecules; one
                 step of each held to the plain version's (loss,
                 grad_norm, gradients, parameters), step time, nodes/s
-                (atoms/s), peak memory, segment_sum launches a step.
+                (atoms/s), peak memory, segment_sum launches a step;
+  lm_serve      qwen3-14b at its full width and depth (40 layers), bf16,
+                seeded weights, through ``prefill`` and greedy
+                ``serve_step``s (after the GNN tensors are released and
+                under 1 GiB is left allocated): the card against the CPU
+                in float32 at 2 of the 40 layers (forward over 64 tokens,
+                prefill of 56 and 8 steps, within 1e-4 relative); one
+                32,768-token prefill (prefill_32k, batch cut to 1):
+                seconds, tokens/s, peak, model FLOP/s against the dense
+                bf16 peak; decode at a 32,768 cache
+                (decode_32k, batch cut to 4; 4 prompts of 2,048 tokens,
+                32 steps): ms a step beside its byte bound, tokens/s,
+                peak, one more step's device time by op; each step's logits
+                against forward's teacher-forced logits (relative
+                Frobenius at most 5e-2, the greedy token equal where the
+                top-2 margin exceeds twice the difference); every logit
+                finite, the cache written in place, ``length`` advancing
+                by one a step;
+  moe_serve     arctic-480b's layers at full width (128 experts top-2 and
+                the dense residual FFN), 2 of its 35 layers, bf16: one
+                8,192-token prefill (seconds, tokens/s, each layer's
+                dropped share at capacity factor 1.25, lb, z); decode at
+                batch 4 for 16 steps (ms a step beside its byte bound),
+                each step's layer-0 ``moe_ffn`` output against a per-token
+                loop on the card (relative Frobenius at most 1e-2).
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
 each capacity run, each SJ-tree run, each mask case's entry-point call,
 recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
-each model of minibatch_infer, each case's timed steps of gnn_train).  Then a {"kernels": [...]}
-line, and the last line is {"ok": true, "device": {...}}.  Without a
+each model of minibatch_infer, each case's timed steps of gnn_train);
+lm_serve and moe_serve zero all four counters and require 0 launches
+(the reference's LM path calls no Pallas kernel).  Then a
+{"kernels": [...]} line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
 
@@ -4283,6 +4309,516 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     return out, launches
 
 
+# --------------------------------------------------------------------- #
+# LM serving (qwen3-14b) and MoE serving (arctic-480b)
+# --------------------------------------------------------------------- #
+# H100 SXM dense bf16 peak (NVIDIA data sheet, no sparsity, 700 W).
+BF16_FLOPS_PER_S = 989e12
+LM_ARCH, MOE_ARCH = "qwen3-14b", "arctic-480b"
+LM_CHECK_LAYERS = 2        # the card-against-CPU check: 2 of the 40 layers
+LM_CHECK_TOKENS, LM_CHECK_PROMPT = 64, 56
+LM_CHECK_TOL = 1e-4        # float32, TF32 off: relative Frobenius
+LM_WARMUP_TOKENS = 2048
+LM_DECODE_BATCH = 4        # decode_32k's batch 128, cut
+LM_DECODE_PROMPT = 2048
+LM_DECODE_STEPS = 32
+LM_DECODE_TOL = 5e-2       # decode against forward, bf16, 40 layers (PERF.md §2)
+MOE_LAYERS = 2             # of arctic's 35
+MOE_PREFILL = 8192         # prefill_32k's 32,768 tokens, cut
+MOE_DECODE_BATCH, MOE_DECODE_STEPS = 4, 16
+MOE_DECODE_PROMPT = 2048
+MOE_LOOP_TOL = 1e-2        # bf16 dispatch against the per-token loop
+
+
+def _launch_counts() -> dict:
+    """The four kernel wrappers' launch counters."""
+    from repro_torch.kernels.compat_join import ops as cj
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.segment_reduce import ops as sr
+
+    return {"compat_join_pairs": cj.compat_join_pairs.launches,
+            "compat_mask": cj.compat_mask.launches,
+            "embedding_bag": eb.embedding_bag.launches,
+            "segment_sum": sr.segment_sum.launches}
+
+
+def _zero_launches() -> None:
+    from repro_torch.kernels.compat_join import ops as cj
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.segment_reduce import ops as sr
+
+    for op in (cj.compat_join_pairs, cj.compat_mask, eb.embedding_bag,
+               sr.segment_sum):
+        op.launches = 0
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.optim.tree import flatten
+
+    return sum(t.numel() * t.element_size() for t in flatten(tree))
+
+
+def _timed(torch, fn):
+    _sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch)
+    return out, time.perf_counter() - t0
+
+
+def _greedy_decode(torch, tfm, params, cfg, prompts, smax: int, steps: int,
+                   on_step=None):
+    """Prefill ``prompts`` [B, P] into a fresh [L, B, smax, Hkv, hd] cache
+    in ``cfg.dtype``, then ``steps`` greedy ``serve_step``s.  Returns
+    (step logits, tokens fed [B, steps], step seconds, prefill logits,
+    problems, device time of one more step by op); ``on_step(i)`` runs
+    after step i, untimed."""
+    b, p = prompts.shape
+    shape = (cfg.n_layers, b, smax, cfg.n_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=cfg.dtype, device=DEVICE)
+    vc = torch.zeros(shape, dtype=cfg.dtype, device=DEVICE)
+    plog, pk, pv = tfm.prefill(params, prompts, cfg)
+    kc[:, :, :p], vc[:, :, :p] = pk, pv
+    del pk, pv
+    length = torch.full((b,), p, dtype=torch.int32, device=DEVICE)
+    tok = plog.argmax(-1)
+    logits, fed, secs, problems = [], [], [], []
+    for i in range(steps):
+        fed.append(tok)
+        (lg, cache), s = _timed(torch, lambda: tfm.serve_step(
+            params, tok[:, None], (kc, vc, length), cfg))
+        secs.append(s)
+        if cache[0] is not kc or cache[1] is not vc:
+            problems.append("serve_step did not write the cache in place")
+        if cache[2].tolist() != [p + i + 1] * b:
+            problems.append(f"length after step {i} is {cache[2].tolist()}")
+        if tuple(lg.shape) != (b, cfg.vocab) or not bool(
+                torch.isfinite(lg).all()):
+            problems.append(f"step {i} logits {tuple(lg.shape)} not finite "
+                            f"or not ({b}, {cfg.vocab})")
+        length = cache[2]
+        logits.append(lg)
+        tok = lg.argmax(-1)
+        if on_step is not None:
+            on_step(i)
+    profile = _op_device_ms(torch, lambda: tfm.serve_step(
+        params, tok[:, None], (kc, vc, length), cfg)) \
+        if DEVICE == "cuda" else {}
+    return logits, torch.stack(fed, 1), secs, plog, problems, profile
+
+
+def phase_lm_serve(torch, seed: int):
+    """qwen3-14b served on the card at its full width and depth (40
+    layers), bf16, seeded random weights, through the reference's serving
+    entry points (``prefill`` for prompts, then greedy ``serve_step``s
+    against a KV cache):
+
+      check     the card against the CPU in float32 at full width, 2 of
+                the 40 layers, the same weights on both (TF32 off):
+                ``forward`` over 64 tokens, ``prefill`` of 56 plus 8
+                ``serve_step``s, each output within 1e-4 relative
+                Frobenius;
+      prefill   one request at ``prefill_32k``'s 32,768 tokens (batch 32
+                cut to 1) after a 2,048-token warm-up: seconds, tokens/s,
+                peak, model FLOPs by the reference cell's rule
+                (2·active·tokens + 2·L·H·hd·S²) and FLOP/s against the
+                dense bf16 peak;
+      decode    ``decode_32k``'s cache length (batch 128 cut to 4): a
+                [40, 4, 32,768, 8, 128] bf16 cache, 4 prompts of 2,048
+                tokens prefilled into it, 32 greedy steps: ms a step,
+                tokens/s, peak, the step's byte bound (every weight but
+                the embedding table, 4 of its rows, the whole cache, over
+                3.35 TB/s), and one more step's device time by op;
+      against forward  each step's logits against ``forward``'s
+                teacher-forced logits at that position (relative
+                Frobenius over the batch at most 5e-2, PERF.md §2), and
+                the greedy token equal wherever forward's top-2 margin
+                exceeds twice the row's largest difference.
+
+    The parameters are drawn in bf16 (``param_dtype`` bf16): the
+    reference casts every parameter to ``cfg.dtype`` before use, so this
+    computes what float32 masters compute.  No hand-written kernel runs
+    on this path: the four launch counters must read 0."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.cells import lm_param_flops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.tree import tree_map
+
+    t_phase = time.perf_counter()
+    _zero_launches()
+    arch = get_arch(LM_ARCH)
+    full = arch.config
+    prefill_len = arch.shape("prefill_32k").seq_len
+    cache_len = arch.shape("decode_32k").seq_len
+    problems = []
+    out = {"phase": "lm_serve", "arch": LM_ARCH,
+           "config": {k: getattr(full, k) for k in (
+               "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+               "d_ff", "vocab", "qk_norm", "rope_theta", "attn_chunk")},
+           "param_dtype": "bfloat16 (the reference casts each parameter "
+                          "to its bf16 dtype before use)",
+           "cuts": {"prefill_32k": f"batch {arch.shape('prefill_32k').global_batch}"
+                                   " cut to 1",
+                    "decode_32k": f"batch {arch.shape('decode_32k').global_batch}"
+                                  f" cut to {LM_DECODE_BATCH}"}}
+
+    # -- the card against the CPU: float32, 2 layers, full width --------
+    cfg32 = dataclasses.replace(full, n_layers=LM_CHECK_LAYERS,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32, remat="none")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    card = tfm.init(gen, cfg32, device=DEVICE)
+    host = tree_map(lambda t: t.cpu(), card)
+    tokens = torch.randint(0, full.vocab, (1, LM_CHECK_TOKENS),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm_serve: TF32 is on for float32 matmuls before the check")
+
+    def run(params, where):
+        t = tokens.to(where)
+        p = LM_CHECK_PROMPT
+        with torch.inference_mode():
+            logits, _ = tfm.forward(params, t, cfg32)
+            plog, pk, pv = tfm.prefill(params, t[:, :p], cfg32)
+            shape = (cfg32.n_layers, 1, LM_CHECK_TOKENS, full.n_kv_heads,
+                     full.head_dim)
+            kc = torch.zeros(shape, device=where)
+            vc = torch.zeros(shape, device=where)
+            kc[:, :, :p], vc[:, :, :p] = pk, pv
+            cache = (kc, vc, torch.full((1,), p, dtype=torch.int32,
+                                        device=where))
+            steps = []
+            for i in range(p, LM_CHECK_TOKENS):
+                lg, cache = tfm.serve_step(params, t[:, i:i + 1], cache,
+                                           cfg32)
+                steps.append(lg)
+        return {"forward": logits, "prefill": plog, "prefill_k": pk,
+                "prefill_v": pv, "steps": torch.stack(steps),
+                "cache_k": cache[0]}
+
+    (got, card_s), (want, host_s) = (_timed(torch, lambda: run(card, DEVICE)),
+                                     _timed(torch, lambda: run(host, "cpu")))
+    errs = {k: _rel_err(got[k].cpu(), want[k]) for k in want}
+    # each side's forward against a float64 forward of the same weights and
+    # tokens on the CPU: a disagreement names the side that moved
+    cfg64 = dataclasses.replace(cfg32, dtype=torch.float64,
+                                param_dtype=torch.float64)
+    with torch.inference_mode():
+        exact = tfm.forward(tree_map(lambda t: t.double(), host), tokens,
+                            cfg64)[0]
+    card_fwd = got["forward"].cpu()
+    out["check"] = {"layers": LM_CHECK_LAYERS, "dtype": "float32",
+                    "tf32": torch.backends.cuda.matmul.allow_tf32,
+                    "tokens": LM_CHECK_TOKENS,
+                    "prompt": LM_CHECK_PROMPT, "rel_err": errs,
+                    "max_rel_err": max(errs.values()), "tol": LM_CHECK_TOL,
+                    "forward_vs_float64": {
+                        "card": _rel_err(card_fwd, exact),
+                        "cpu": _rel_err(want["forward"], exact)},
+                    "card_s": card_s, "cpu_s": host_s}
+    if not max(errs.values()) <= LM_CHECK_TOL:
+        # not a retry: the check has failed; this says whether each side
+        # computes its forward again bit for bit, and where they part
+        with torch.inference_mode():
+            again = {"card": tfm.forward(card, tokens.to(DEVICE),
+                                         cfg32)[0].cpu(),
+                     "cpu": tfm.forward(host, tokens, cfg32)[0]}
+        diff = (card_fwd - want["forward"]).abs()[0]       # [S, V]
+        worst = int(diff.argmax())
+        pos_err = diff.norm(dim=-1) / want["forward"][0].norm(dim=-1)
+        diag = {"forward_vs_float64": out["check"]["forward_vs_float64"],
+                "card_repeats": bool(torch.equal(again["card"], card_fwd)),
+                "cpu_repeats": bool(torch.equal(again["cpu"],
+                                                want["forward"])),
+                "worst_position_rel_err": [int(pos_err.argmax()),
+                                           float(pos_err.max())],
+                "worst_element": [worst // diff.shape[1],
+                                  worst % diff.shape[1], float(diff.max())],
+                "tf32": torch.backends.cuda.matmul.allow_tf32}
+        out["check"]["diagnosis"] = diag
+        problems.append(f"lm_serve: the card differs from the CPU {errs} "
+                        f"{diag}")
+    del card, host, got, want, exact, card_fwd
+    _free(torch)
+
+    # -- full depth, bf16 ------------------------------------------------
+    cfg = dataclasses.replace(full, param_dtype=torch.bfloat16)
+    (model, init_s) = _timed(torch, lambda: tfm.LM(cfg, device=DEVICE,
+                                                   seed=seed))
+    params = model.params()
+    weights = _nbytes(params)
+    total, active = lm_param_flops(cfg)
+    out["weights"] = {"bytes": weights, "params": total, "active": active,
+                      "init_s": init_s}
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+
+    # prefill: one request at prefill_32k's length
+    with torch.inference_mode():
+        warm = torch.randint(0, cfg.vocab, (1, LM_WARMUP_TOKENS),
+                             generator=gen, device=DEVICE)
+        tfm.prefill(params, warm, cfg)
+        prompt = torch.randint(0, cfg.vocab, (1, prefill_len), generator=gen,
+                               device=DEVICE)
+        _reset_peak(torch)
+        (plog, pk, pv), secs = _timed(torch, lambda: tfm.prefill(
+            params, prompt, cfg))
+        peak = _peak_gib(torch)
+        kv = [tuple(pk.shape), tuple(pv.shape)]
+        del pk, pv
+    flops = 2 * active * prefill_len + 2 * cfg.n_layers * cfg.n_heads \
+        * cfg.head_dim * prefill_len * prefill_len
+    out["prefill"] = {"tokens": prefill_len, "batch": 1, "s": secs,
+                      "tokens_per_s": prefill_len / secs, "peak_gib": peak,
+                      "model_flops": flops, "flop_per_s": flops / secs,
+                      "share_of_bf16_peak": flops / secs / BF16_FLOPS_PER_S}
+    if tuple(plog.shape) != (1, cfg.vocab) or kv != 2 * [(
+            cfg.n_layers, 1, prefill_len, cfg.n_kv_heads, cfg.head_dim)] \
+            or not bool(torch.isfinite(plog).all()):
+        problems.append(f"lm_serve: prefill gave {tuple(plog.shape)}, {kv}: "
+                        "not finite or not the shapes")
+    del plog, prompt
+    _free(torch)
+
+    # decode at decode_32k's cache length
+    _reset_peak(torch)
+    with torch.inference_mode():
+        prompts = torch.randint(0, cfg.vocab,
+                                (LM_DECODE_BATCH, LM_DECODE_PROMPT),
+                                generator=gen, device=DEVICE)
+        logits, fed, step_s, plog, more, profile = _greedy_decode(
+            torch, tfm, params, cfg, prompts, cache_len, LM_DECODE_STEPS)
+    peak = _peak_gib(torch)
+    problems.extend(f"lm_serve: {m}" for m in more)
+    width = torch.finfo(cfg.dtype).bits // 8
+    cache_bytes = 2 * cfg.n_layers * LM_DECODE_BATCH * cache_len \
+        * cfg.n_kv_heads * cfg.head_dim * width
+    step_bytes = weights - _nbytes(params["embed"]) \
+        + LM_DECODE_BATCH * cfg.d_model * width + cache_bytes
+    med = statistics.median(step_s)
+    out["decode"] = {"batch": LM_DECODE_BATCH, "cache_len": cache_len,
+                     "prompt": LM_DECODE_PROMPT, "steps": LM_DECODE_STEPS,
+                     "step_ms": [s * 1e3 for s in step_s],
+                     "ms_per_step_median": med * 1e3,
+                     "tokens_per_s": LM_DECODE_BATCH * len(step_s)
+                     / sum(step_s),
+                     "bound_bytes": step_bytes,
+                     "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+                     "cache_bytes": cache_bytes, "peak_gib": peak,
+                     "profiled_step": profile}
+
+    # each step against forward's teacher-forced logits
+    with torch.inference_mode():
+        seq = torch.cat([prompts, fed], 1)
+        fwd, _ = tfm.forward(params, seq, cfg)
+        fwd = fwd[:, LM_DECODE_PROMPT - 1:].float()     # [B, 1 + steps, V]
+    del seq
+    rel, diffs, margins, agree, bad = [], [], [], 0, []
+    for i, lg in enumerate(logits):
+        want, lg = fwd[:, 1 + i], lg.float()
+        rel.append(_rel_err(lg, want))
+        diff = (lg - want).abs().amax(-1)
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = lg.argmax(-1) == want.argmax(-1)
+        agree += int(same.sum())
+        must = margin > 2 * diff
+        if bool((must & ~same).any()):
+            bad.append(i)
+        diffs.append([float(x) for x in diff])
+        margins.append([float(x) for x in margin])
+    prefill_rel = _rel_err(plog.float(), fwd[:, 0])
+    out["decode_vs_forward"] = {
+        "rel_err": rel, "max_rel_err": max(rel), "tol": LM_DECODE_TOL,
+        "prefill_rel_err": prefill_rel, "max_abs_diff": diffs,
+        "top2_margin": margins, "greedy_agree": agree,
+        "greedy_of": LM_DECODE_BATCH * len(logits)}
+    if not max(rel) <= LM_DECODE_TOL:
+        problems.append(f"lm_serve: decode differs from forward by "
+                        f"{max(rel)} > {LM_DECODE_TOL}")
+    if bad:
+        problems.append(f"lm_serve: the greedy token differs where the "
+                        f"margin exceeds twice the difference, steps {bad}")
+    del fwd, logits, plog, model, params
+    _free(torch)
+    out["launches"] = _launch_counts()
+    if any(out["launches"].values()):
+        problems.append(f"lm_serve: a hand-written kernel launched "
+                        f"{out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def _moe_loop(torch, x, p):
+    """An explicit per-token loop over the same gates' top-2 experts
+    (renormalised): ``silu(x·w1[e]) * (x·w3[e]) · w2[e]``, weighted and
+    summed in float32."""
+    F = torch.nn.functional
+    gates = torch.softmax((x @ p["wg"]).float(), dim=-1)
+    topw, topi = torch.topk(gates, 2, dim=-1)
+    topw = topw / topw.sum(-1, keepdim=True)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for t in range(x.shape[0]):
+        for k in range(2):
+            e = int(topi[t, k])
+            h = F.silu(x[t] @ p["w1"][e]) * (x[t] @ p["w3"][e])
+            out[t] += topw[t, k] * (h @ p["w2"][e]).float()
+    return out
+
+
+def phase_moe_serve(torch, seed: int):
+    """arctic-480b's MoE path on the card at full width (128 experts of
+    7,168 x 4,864, top-2, the dense residual FFN, 56 query heads), 2 of
+    its 35 layers, bf16 (its own ``param_dtype``), seeded random weights:
+
+      prefill   one request of 8,192 tokens (at 32,768 the 56-head score
+                blocks beside 55.4 GB of weights pass 80 GB): seconds,
+                tokens/s, each layer's share of token-expert assignments
+                dropped at ``capacity_factor`` 1.25, ``lb`` and ``z``;
+      decode    batch 4, 4 prompts of 2,048 tokens prefilled into a
+                ``decode_32k``-length cache, 16 greedy steps (capacity 4
+                at T = 4: no token is dropped): ms a step, tokens/s,
+                and on every step layer 0's ``moe_ffn`` output against an
+                explicit per-token loop on the card (relative Frobenius
+                at most 1e-2, bf16).
+
+    No hand-written kernel runs on this path: the four launch counters
+    must read 0."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    _zero_launches()
+    arch = get_arch(MOE_ARCH)
+    full = arch.config
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    cache_len = arch.shape("decode_32k").seq_len
+    problems = []
+    out = {"phase": "moe_serve", "arch": MOE_ARCH,
+           "config": {k: getattr(full, k) for k in (
+               "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+               "n_experts", "moe_topk", "capacity_factor", "residual_d_ff",
+               "vocab", "attn_chunk")},
+           "cuts": {"depth": f"{MOE_LAYERS} of {full.n_layers} layers",
+                    "prefill": f"{MOE_PREFILL} tokens of prefill_32k's "
+                               f"{arch.shape('prefill_32k').seq_len}, "
+                               "batch 1",
+                    "decode": f"batch {MOE_DECODE_BATCH} of decode_32k's "
+                              f"{arch.shape('decode_32k').global_batch}"}}
+    (model, init_s) = _timed(torch, lambda: tfm.LM(cfg, device=DEVICE,
+                                                   seed=seed))
+    params = model.params()
+    out["weights"] = {"bytes": _nbytes(params), "init_s": init_s}
+
+    # record each moe_ffn call's input, weights and output (references
+    # only: nothing is computed inside the timed runs)
+    calls = []
+    real = tfm.moe_ffn
+
+    def recording(x, p, c):
+        y = real(x, p, c)
+        calls.append((x, p, y[0]))
+        return y
+
+    tfm.moe_ffn = recording
+    try:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+        with torch.inference_mode():
+            warm = torch.randint(0, cfg.vocab, (1, LM_WARMUP_TOKENS),
+                                 generator=gen, device=DEVICE)
+            tfm.prefill(params, warm, cfg)
+            prompt = torch.randint(0, cfg.vocab, (1, MOE_PREFILL),
+                                   generator=gen, device=DEVICE)
+            calls.clear()
+            _reset_peak(torch)
+            (plog, _, _), secs = _timed(torch, lambda: tfm.prefill(
+                params, prompt, cfg))
+            peak = _peak_gib(torch)
+            layers = []
+            for x, p, _ in calls:
+                cap = moe._capacity(cfg, x.shape[0])
+                _, (slot, _, _), lb, z = moe._dispatch_group(x, p, cfg, cap)
+                dropped = int((slot == cfg.n_experts * cap).sum())
+                layers.append({"capacity": cap, "dropped": dropped,
+                               "dropped_share": dropped / slot.numel(),
+                               "lb": float(lb), "z": float(z)})
+        out["prefill"] = {"tokens": MOE_PREFILL, "s": secs,
+                          "tokens_per_s": MOE_PREFILL / secs,
+                          "peak_gib": peak, "layers": layers}
+        if len(layers) != MOE_LAYERS or tuple(plog.shape) != (
+                1, cfg.vocab) or not bool(torch.isfinite(plog).all()):
+            problems.append(f"moe_serve: prefill gave {tuple(plog.shape)} "
+                            f"over {len(layers)} MoE calls")
+        del plog, prompt
+        calls.clear()
+        _free(torch)
+
+        loop_err = []
+
+        def check(i):
+            x, p, y = calls[-cfg.n_layers]      # layer 0 of this step
+            if x.shape[0] != MOE_DECODE_BATCH:
+                problems.append(f"moe_serve: step {i} routed {x.shape[0]} "
+                                "tokens")
+            loop_err.append(_rel_err(y, _moe_loop(torch, x, p)))
+            calls.clear()
+
+        _reset_peak(torch)
+        with torch.inference_mode():
+            prompts = torch.randint(0, cfg.vocab,
+                                    (MOE_DECODE_BATCH, MOE_DECODE_PROMPT),
+                                    generator=gen, device=DEVICE)
+
+            logits, _, step_s, _, more, profile = _greedy_decode(
+                torch, tfm, params, cfg, prompts, cache_len,
+                MOE_DECODE_STEPS, on_step=check)
+        peak = _peak_gib(torch)
+    finally:
+        tfm.moe_ffn = real
+    problems.extend(f"moe_serve: {m}" for m in more)
+    # a step reads every expert's weights (each expert's product runs
+    # over its capacity rows, empty or not) and the whole cache
+    width = torch.finfo(cfg.dtype).bits // 8
+    step_bytes = out["weights"]["bytes"] - _nbytes(params["embed"]) \
+        + MOE_DECODE_BATCH * cfg.d_model * width + 2 * cfg.n_layers \
+        * MOE_DECODE_BATCH * cache_len * cfg.n_kv_heads * cfg.head_dim * width
+    out["decode"] = {"batch": MOE_DECODE_BATCH, "cache_len": cache_len,
+                     "prompt": MOE_DECODE_PROMPT, "steps": MOE_DECODE_STEPS,
+                     "capacity": moe._capacity(cfg, MOE_DECODE_BATCH),
+                     "step_ms": [s * 1e3 for s in step_s],
+                     "ms_per_step_median": statistics.median(step_s) * 1e3,
+                     "tokens_per_s": MOE_DECODE_BATCH * len(step_s)
+                     / sum(step_s),
+                     "loop_rel_err": loop_err,
+                     "max_loop_rel_err": max(loop_err),
+                     "loop_tol": MOE_LOOP_TOL, "peak_gib": peak,
+                     "bound_bytes": step_bytes,
+                     "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+                     "profiled_step": profile}
+    if len(loop_err) != MOE_DECODE_STEPS \
+            or not max(loop_err) <= MOE_LOOP_TOL:
+        problems.append(f"moe_serve: moe_ffn differs from the per-token "
+                        f"loop: {loop_err}")
+    del logits, model, params
+    _free(torch)
+    out["launches"] = _launch_counts()
+    if any(out["launches"].values()):
+        problems.append(f"moe_serve: a hand-written kernel launched "
+                        f"{out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
 _COMPARE_CHILD = """
 import argparse, json, os, sys
 import numpy as np
@@ -4449,6 +4985,12 @@ def main(argv=None) -> int:
     _, gnn_train_launches = phase_gnn_train(torch, args.seed, graph,
                                             graph_info)
     del graph
+    _free(torch)
+    if DEVICE == "cuda" and torch.cuda.memory_allocated() >= 2**30:
+        fail(f"{torch.cuda.memory_allocated()} bytes still allocated on the "
+             "card before the LM phases")
+    phase_lm_serve(torch, args.seed)
+    phase_moe_serve(torch, args.seed)
 
     def entry(name, source, replaces, launches, rows, timed, **extra):
         row = next(r for r in rows if r["case"] == timed)

@@ -1,6 +1,7 @@
 """Train steps of the substrate models: the port of the step builders of
 ``repro.launch.cells`` (``make_gnn_train_step``,
-``make_recsys_train_step``).
+``make_recsys_train_step``), and the LM cells' parameter count
+(``lm_param_flops``).
 
 A step takes the model (an ``nn.Module`` that holds its parameters and
 config), the optimiser state (``optim.adamw_init`` of
@@ -10,7 +11,7 @@ then ``adamw_update``, which writes the new parameters into the module
 in place.  It returns ``(model, opt_state, loss, grad_norm)``.  ``lr``
 is the builder's value, captured by the step as in the reference.  The
 reference's cells (``Cell``, ``build_cell``, the LM cells and their
-shardings) are not ported here.
+shardings) and ``make_lm_train_step`` are not ported here.
 """
 
 from __future__ import annotations
@@ -60,3 +61,22 @@ def make_recsys_train_step(cfg, ocfg: AdamWConfig, lr: float = 1e-3):
                      lr, ocfg)
 
     return train_step
+
+
+def lm_param_flops(cfg) -> tuple[int, int]:
+    """(total params, active params) — MoE counts top-k experts only."""
+    d, f, L, v = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim \
+        + cfg.n_heads * cfg.head_dim * d
+    if cfg.moe:
+        ffn_total = cfg.n_experts * 3 * d * f + d * cfg.n_experts
+        ffn_active = cfg.moe_topk * 3 * d * f + d * cfg.n_experts
+        if cfg.dense_residual:
+            rf = cfg.residual_d_ff or f
+            ffn_total += 3 * d * rf
+            ffn_active += 3 * d * rf
+    else:
+        ffn_total = ffn_active = 3 * d * f
+    total = L * (attn + ffn_total) + 2 * v * d
+    active = L * (attn + ffn_active) + 2 * v * d
+    return total, active

@@ -28,7 +28,14 @@ import pytest
 import torch
 
 import _torch_util  # noqa: F401  (caps torch threads)
-from repro_torch.configs import gat_cora, gin_tu, nequip, pna, wide_deep
+from repro_torch.configs import (
+    gat_cora,
+    gin_tu,
+    nequip,
+    pna,
+    qwen3_14b,
+    wide_deep,
+)
 from repro_torch.core import engine, multi, state
 from repro_torch.core import join as TJ
 from repro_torch.core.plan import compile_plan
@@ -39,7 +46,9 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.models.common import params_from_numpy
 from repro_torch.models.gnn.models import GAT, GIN, PNA
+from repro_torch.models import transformer
 from repro_torch.models.gnn.nequip import NequIP
+from repro_torch.models.transformer import LM
 from repro_torch.models.recsys.wide_deep import WideDeep
 from repro_torch.core.query import QueryGraph
 from repro_torch.runtime.service import ContinuousSearchService
@@ -77,6 +86,12 @@ MODULES = [
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.compress", "repro_torch.optim.schedule",
     "repro_torch.optim.tree", "repro_torch.launch.cells",
+    "repro_torch.models.common", "repro_torch.models.attention",
+    "repro_torch.models.moe", "repro_torch.models.transformer",
+    "repro_torch.data.lm", "repro_torch.configs.registry",
+    "repro_torch.configs.deepseek_coder_33b",
+    "repro_torch.configs.qwen3_14b", "repro_torch.configs.internlm2_20b",
+    "repro_torch.configs.arctic_480b", "repro_torch.configs.grok1_314b",
 ]
 
 
@@ -124,7 +139,7 @@ def _plan():
     "shared_service", "init_node_state", "stream_session", "stream_server",
     "service_restore", "session_frontier", "service_frontier",
     "session_restore_ingest", "sharded_service", "mesh_session",
-    "make_mesh", "sharded_tick", "gat", "pna", "nequip"])
+    "make_mesh", "sharded_tick", "gat", "pna", "nequip", "lm", "lm_init"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
     from repro_torch.core.distributed import build_sharded_tick, make_mesh
@@ -192,6 +207,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "gat": lambda **kw: GAT(gat_cora.smoke_config(), **kw),
         "pna": lambda **kw: PNA(pna.smoke_config(), **kw),
         "nequip": lambda **kw: NequIP(nequip.smoke_config(), **kw),
+        "lm": lambda **kw: LM(qwen3_14b.smoke_config(), **kw),
+        "lm_init": lambda **kw: transformer.init(
+            torch.Generator(), qwen3_14b.smoke_config(), **kw),
         "batch_to_device": lambda **kw: batch_to_device(
             {"dense": np.zeros((2, 3), np.float32)}, **kw),
         "graph_to_device": lambda **kw: graph_to_device(

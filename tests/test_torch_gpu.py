@@ -1182,3 +1182,95 @@ def test_train_step_on_card_equals_plain(cuda, arch):
         tol = lr * (sa - sb).abs() \
             + 16 * 2.0 ** -24 * (q.double().abs() + lr * (sb.abs() + 1))
         assert bool(((p.double() - q.double()).abs() <= tol).all())
+
+
+def _rel_frob(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+LM_SMOKE = ["deepseek_coder_33b", "qwen3_14b", "internlm2_20b",
+            "arctic_480b", "grok1_314b"]
+
+
+@pytest.mark.parametrize("name", LM_SMOKE)
+def test_lm_on_card_equals_cpu(cuda, name):
+    """Each LM smoke config (float32) on the card against the same
+    weights and tokens on the CPU: forward logits, prefill logits and
+    K/V, and six serve_steps from the prefilled cache, each within 1e-4
+    relative Frobenius (float32 products summed in other orders; no
+    TF32 in float32).  The LM path launches none of the port's kernels."""
+    import importlib
+
+    from repro_torch.kernels.compat_join import ops as cj
+    from repro_torch.models import transformer as TT
+
+    cfg = importlib.import_module(
+        f"repro_torch.configs.{name}").smoke_config()
+    cpu = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = TT.LM(cfg, device=cuda, params=cpu).params()
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    prompt, smax = 34, 48
+    before = (cj.compat_join_pairs.launches, cj.compat_mask.launches,
+              eb_ops.embedding_bag.launches, sr_ops.segment_sum.launches)
+    out = {}
+    for where, params in (("cpu", cpu), ("cuda", card)):
+        t = tokens.to(where)
+        with torch.inference_mode():
+            logits, _ = TT.forward(params, t, cfg)
+            plog, pk, pv = TT.prefill(params, t[:, :prompt], cfg)
+            shape = (cfg.n_layers, 2, smax, cfg.n_kv_heads, cfg.head_dim)
+            kc = torch.zeros(shape, device=where)
+            vc = torch.zeros(shape, device=where)
+            kc[:, :, :prompt], vc[:, :, :prompt] = pk, pv
+            cache = (kc, vc, torch.full((2,), prompt, dtype=torch.int32,
+                                        device=where))
+            steps = []
+            for i in range(prompt, 40):
+                lg, cache = TT.serve_step(params, t[:, i:i + 1], cache, cfg)
+                steps.append(lg)
+        out[where] = [logits, plog, pk, pv, *steps, cache[0]]
+        assert cache[2].tolist() == [40, 40]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.device.type == "cuda"
+        assert _rel_frob(got, want) <= 1e-4
+    assert (cj.compat_join_pairs.launches, cj.compat_mask.launches,
+            eb_ops.embedding_bag.launches,
+            sr_ops.segment_sum.launches) == before
+
+
+def test_moe_on_card_equals_token_loop(cuda):
+    """Arctic's smoke config: one layer's ``moe_ffn`` on the card against
+    an explicit per-token loop on the card over the same gates' top-2
+    experts (renormalised), float32 within 1e-5 relative Frobenius, and
+    the bfloat16 dispatch within 1e-2."""
+    import dataclasses
+
+    from repro_torch.configs import arctic_480b
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(arctic_480b.smoke_config(),
+                              capacity_factor=8.0)      # no drops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: v[0] for k, v in TT.init(gen, cfg, device=cuda)["layers"][
+        "moe"].items()}
+    x = torch.randn((64, cfg.d_model), generator=gen, device=cuda)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        xd = x.to(dtype)
+        pd = {k: v.to(dtype) for k, v in p.items()}
+        with torch.inference_mode():
+            got, _ = moe.moe_ffn(xd, pd, cfg)
+            gates = torch.softmax((xd @ pd["wg"]).float(), dim=-1)
+            topw, topi = torch.topk(gates, 2, dim=-1)
+            topw = topw / topw.sum(-1, keepdim=True)
+            want = torch.zeros_like(xd, dtype=torch.float32)
+            for t in range(x.shape[0]):
+                for kk in range(2):
+                    e = int(topi[t, kk])
+                    h = torch.nn.functional.silu(xd[t] @ pd["w1"][e]) \
+                        * (xd[t] @ pd["w3"][e])
+                    want[t] += topw[t, kk] * (h @ pd["w2"][e]).float()
+        assert got.dtype == dtype
+        assert _rel_frob(got, want) <= tol

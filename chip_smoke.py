@@ -225,7 +225,28 @@ exit, nothing is caught and skipped):
                 dropped share at capacity factor 1.25, lb, z); decode at
                 batch 4 for 16 steps (ms a step beside its byte bound),
                 each step's layer-0 ``moe_ffn`` output against a per-token
-                loop on the card (relative Frobenius at most 1e-2).
+                loop on the card (relative Frobenius at most 1e-2);
+  lm_train      qwen3-14b trained at its full width, 2 of its 40 layers,
+                bf16 compute on float32 masters, AdamW fp32, remat
+                (``make_lm_train_step``, ``train_lm``): (a) one float32
+                step on the card against the CPU from the same parameters
+                (loss, grad_norm, gradients, every parameter; 1 layer if
+                the host lacks the memory, said why); (b) 4 microbatches
+                against 1 over 8 x 512 tokens within 1e-2; (c) a warm-up
+                and 5 timed steps of 8 x 4,096 tokens in 4 microbatches
+                (train_4k's sequence and microbatches, batch 256 cut):
+                seconds, tokens/s, peak, model FLOP/s against the dense
+                bf16 peak, one step's device time by op, every loss
+                finite; (d) ``train_lm`` at examples/torch_train_lm.py's
+                small profile, 300 steps, checkpoints every 100, resumed
+                at 200: the loss learnt and the resumed losses equal;
+  dryrun        ``launch.dryrun.run_cell`` on the meta device for the
+                lm_train step, lm_serve's 32,768-token prefill and one
+                lm_serve decode step, each cut as its phase ran it: the
+                reckoned peak within 15% of the peak measured around that
+                same call alone (the counter reset just before it), the
+                reckoned FLOPs beside the model FLOPs, the roofline's
+                dominant term and bound.
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
@@ -233,8 +254,8 @@ each capacity run, each SJ-tree run, each mask case's entry-point call,
 recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
 each model of minibatch_infer, each case's timed steps of gnn_train);
-lm_serve and moe_serve zero all four counters and require 0 launches
-(the reference's LM path calls no Pallas kernel).  Then a
+lm_serve, moe_serve and lm_train zero all four counters and require 0
+launches (the reference's LM path calls no Pallas kernel).  Then a
 {"kernels": [...]} line, and the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device, or without the repository beside this script, it exits
 non-zero and prints no result.
@@ -254,6 +275,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -3037,20 +3059,49 @@ def phase_recsys_serve(torch, seed: int):
     return out, launches
 
 
-def make_products_graph(torch, seed: int):
-    """The ogbn-products-shaped graph (``synth_products_like``: Pareto
-    1.2 popularity, ``GIN_NODES`` nodes, ``GIN_DEGREE`` edges per node,
-    100 features, 47 classes, the node labels), made on the host and
-    moved to the card."""
-    from repro_torch.data.graphs import graph_to_device, synth_products_like
+def start_products_graph(seed: int):
+    """Start making the ogbn-products-shaped graph's host arrays
+    (``synth_products_like``: Pareto 1.2 popularity, ``GIN_NODES`` nodes,
+    ``GIN_DEGREE`` edges per node, 100 features, 47 classes, the node
+    labels) in a thread, so that it runs while nvcc builds the kernels
+    (numpy's sampling and sorting release the GIL).  Returns a function
+    that waits for it and gives (arrays, seconds the making took)."""
+    import threading
 
-    t0 = time.perf_counter()
-    g = synth_products_like(n_nodes=GIN_NODES, avg_degree=GIN_DEGREE,
-                            d_feat=GIN_FEAT, n_classes=GIN_CLASSES,
-                            seed=seed)
-    make_s = time.perf_counter() - t0
-    g = graph_to_device({k: g[k] for k in ("x", "edge_src", "edge_dst",
-                                           "labels")}, DEVICE)
+    from repro_torch.data.graphs import synth_products_like
+
+    box = {}
+
+    def make():
+        t0 = time.perf_counter()
+        try:
+            box["g"] = synth_products_like(
+                n_nodes=GIN_NODES, avg_degree=GIN_DEGREE, d_feat=GIN_FEAT,
+                n_classes=GIN_CLASSES, seed=seed)
+        except BaseException as e:      # raised again in the caller
+            box["error"] = e
+        box["make_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=make, name="products-graph",
+                              daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["g"], box["make_s"]
+
+    return wait
+
+
+def make_products_graph(torch, host, make_s: float):
+    """The products graph from ``start_products_graph``'s host arrays,
+    moved to the card; ``host_make_s`` is the making's own time."""
+    from repro_torch.data.graphs import graph_to_device
+
+    g = graph_to_device({k: host[k] for k in ("x", "edge_src", "edge_dst",
+                                              "labels")}, DEVICE)
     deg = torch.bincount(g["edge_dst"].long(), minlength=GIN_NODES)
     info = {"nodes": GIN_NODES, "edges": g["edge_src"].numel(),
             "host_make_s": make_s, "max_in_degree": int(deg.max())}
@@ -4371,8 +4422,11 @@ def _greedy_decode(torch, tfm, params, cfg, prompts, smax: int, steps: int,
     """Prefill ``prompts`` [B, P] into a fresh [L, B, smax, Hkv, hd] cache
     in ``cfg.dtype``, then ``steps`` greedy ``serve_step``s.  Returns
     (step logits, tokens fed [B, steps], step seconds, prefill logits,
-    problems, device time of one more step by op); ``on_step(i)`` runs
-    after step i, untimed."""
+    problems, device time of one more step by op, peaks); ``on_step(i)``
+    runs after step i, untimed.  ``peaks``: the most allocated over the
+    whole section in GiB (``gib``) and around the profiled step alone
+    (``step_bytes``: the peak counter reset just before it), both None
+    off the card."""
     b, p = prompts.shape
     shape = (cfg.n_layers, b, smax, cfg.n_kv_heads, cfg.head_dim)
     kc = torch.zeros(shape, dtype=cfg.dtype, device=DEVICE)
@@ -4401,10 +4455,19 @@ def _greedy_decode(torch, tfm, params, cfg, prompts, smax: int, steps: int,
         tok = lg.argmax(-1)
         if on_step is not None:
             on_step(i)
+    if DEVICE != "cuda":
+        return logits, torch.stack(fed, 1), secs, plog, problems, {}, \
+            {"gib": None, "step_bytes": None}
+    # the profiler (no profile_memory) allocates nothing through the
+    # caching allocator, and a window it takes again reruns the same step,
+    # so the counter reset here reads the one step's peak
+    section = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     profile = _op_device_ms(torch, lambda: tfm.serve_step(
-        params, tok[:, None], (kc, vc, length), cfg)) \
-        if DEVICE == "cuda" else {}
-    return logits, torch.stack(fed, 1), secs, plog, problems, profile
+        params, tok[:, None], (kc, vc, length), cfg))
+    step = torch.cuda.max_memory_allocated()
+    return logits, torch.stack(fed, 1), secs, plog, problems, profile, \
+        {"gib": max(section, step) / 2**30, "step_bytes": step}
 
 
 def phase_lm_serve(torch, seed: int):
@@ -4565,13 +4628,16 @@ def phase_lm_serve(torch, seed: int):
         (plog, pk, pv), secs = _timed(torch, lambda: tfm.prefill(
             params, prompt, cfg))
         peak = _peak_gib(torch)
+        peak_bytes = torch.cuda.max_memory_allocated() \
+            if DEVICE == "cuda" else None
         kv = [tuple(pk.shape), tuple(pv.shape)]
         del pk, pv
     flops = 2 * active * prefill_len + 2 * cfg.n_layers * cfg.n_heads \
         * cfg.head_dim * prefill_len * prefill_len
     out["prefill"] = {"tokens": prefill_len, "batch": 1, "s": secs,
                       "tokens_per_s": prefill_len / secs, "peak_gib": peak,
-                      "model_flops": flops, "flop_per_s": flops / secs,
+                      "peak_bytes": peak_bytes, "model_flops": flops,
+                      "flop_per_s": flops / secs,
                       "share_of_bf16_peak": flops / secs / BF16_FLOPS_PER_S}
     if tuple(plog.shape) != (1, cfg.vocab) or kv != 2 * [(
             cfg.n_layers, 1, prefill_len, cfg.n_kv_heads, cfg.head_dim)] \
@@ -4587,9 +4653,9 @@ def phase_lm_serve(torch, seed: int):
         prompts = torch.randint(0, cfg.vocab,
                                 (LM_DECODE_BATCH, LM_DECODE_PROMPT),
                                 generator=gen, device=DEVICE)
-        logits, fed, step_s, plog, more, profile = _greedy_decode(
+        logits, fed, step_s, plog, more, profile, peaks = _greedy_decode(
             torch, tfm, params, cfg, prompts, cache_len, LM_DECODE_STEPS)
-    peak = _peak_gib(torch)
+    peak = peaks["gib"]
     problems.extend(f"lm_serve: {m}" for m in more)
     width = torch.finfo(cfg.dtype).bits // 8
     cache_bytes = 2 * cfg.n_layers * LM_DECODE_BATCH * cache_len \
@@ -4606,6 +4672,7 @@ def phase_lm_serve(torch, seed: int):
                      "bound_bytes": step_bytes,
                      "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
                      "cache_bytes": cache_bytes, "peak_gib": peak,
+                     "step_peak_bytes": peaks["step_bytes"],
                      "profiled_step": profile}
 
     # each step against forward's teacher-forced logits
@@ -4776,10 +4843,10 @@ def phase_moe_serve(torch, seed: int):
                                     (MOE_DECODE_BATCH, MOE_DECODE_PROMPT),
                                     generator=gen, device=DEVICE)
 
-            logits, _, step_s, _, more, profile = _greedy_decode(
+            logits, _, step_s, _, more, profile, peaks = _greedy_decode(
                 torch, tfm, params, cfg, prompts, cache_len,
                 MOE_DECODE_STEPS, on_step=check)
-        peak = _peak_gib(torch)
+        peak = peaks["gib"]
     finally:
         tfm.moe_ffn = real
     problems.extend(f"moe_serve: {m}" for m in more)
@@ -4799,6 +4866,7 @@ def phase_moe_serve(torch, seed: int):
                      "loop_rel_err": loop_err,
                      "max_loop_rel_err": max(loop_err),
                      "loop_tol": MOE_LOOP_TOL, "peak_gib": peak,
+                     "step_peak_bytes": peaks["step_bytes"],
                      "bound_bytes": step_bytes,
                      "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
                      "profiled_step": profile}
@@ -4817,6 +4885,423 @@ def phase_moe_serve(torch, seed: int):
     if problems:
         fail("; ".join(problems))
     return out
+
+
+# --------------------------------------------------------------------- #
+# LM training (qwen3-14b) and the dry run of its cells
+# --------------------------------------------------------------------- #
+LM_TRAIN_LAYERS = 2        # of qwen3-14b's 40: the cut is depth only
+LM_TRAIN_BATCH = 8         # train_4k's batch 256, cut; its 4 microbatches kept
+LM_TRAIN_STEPS = 5         # timed bf16 steps, after one warm-up step
+LM_TRAIN_LR = 3e-4         # train_lm's
+LM_TRAIN_CHECK = (2, 64, 2)     # (a): sequences, tokens each, microbatches
+LM_TRAIN_CHECK_TOL = 1e-4  # float32, TF32 off: relative (PERF.md §2)
+LM_TRAIN_MB_SEQ = 512      # (b): 8 sequences of 512, 4 microbatches against 1
+LM_TRAIN_MB_TOL = 1e-4     # bf16 products, float32 sums: relative; read at
+                           # 7.7e-8 (loss), 5.8e-6 (grad_norm): PERF.md §2
+LM_TRAIN_RUN = ("small", 300, 100, 200)   # (d): profile, steps, every, resume
+LM_TRAIN_RESUME_TOL = 1e-4  # the resumed run's losses: float32 reordering
+CHECK_CHUNK = 1 << 26      # elements of a leaf compared at a time
+DRYRUN_PEAK_TOL = 0.15     # a reckoned peak against the measured one
+
+
+def _mem_available() -> int:
+    """The host's MemAvailable in bytes (/proc/meminfo), 0 if unread."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _lm_step_checks(torch, got, want, lr: float, tol: float, ocfg) -> tuple:
+    """One LM train step from the same parameters and a zero AdamW state
+    on the card (``got``) and on the CPU (``want``), each (params tree,
+    opt state, loss, grad_norm): ``_step_checks``' rules at ``lr``, each
+    leaf compared ``CHECK_CHUNK`` elements at a time on the card (a
+    float64 copy of the 3.1 GB embedding table and its moments would not
+    fit beside the CPU's step).  Returns (fields, problems)."""
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    (gp, gs, gl, gn), (wp, ws, wl, wn) = got, want
+    problems = []
+    loss_rel = abs(float(gl) - float(wl)) / max(abs(float(wl)), 1e-30)
+    gn_rel = abs(float(gn) - float(wn)) / max(abs(float(wn)), 1e-30)
+    if not (loss_rel <= tol and gn_rel <= tol):
+        problems.append(f"loss / grad_norm rel err {loss_rel} / {gn_rel} "
+                        f"> {tol}")
+    g_leaves, w_leaves = flatten(gp), flatten(wp)
+    g_st = flatten_up_to(gp, gs["leaves"])
+    w_st = flatten_up_to(wp, ws["leaves"])
+    grad_rel, param_ratio = 0.0, 0.0
+    for i in range(len(g_leaves)):
+        flat = {"gm": g_st[i]["m"], "gv": g_st[i]["v"], "wm": w_st[i]["m"],
+                "wv": w_st[i]["v"], "gp": g_leaves[i], "wp": w_leaves[i]}
+        flat = {k: v.detach().reshape(-1) for k, v in flat.items()}
+        scale = float(flat["wm"].abs().max())
+        err, ratio = 0.0, 0.0
+        for lo in range(0, flat["gm"].numel(), CHECK_CHUNK):
+            c = {k: v[lo:lo + CHECK_CHUNK].to(DEVICE) for k, v in flat.items()}
+            err = max(err, float((c["gm"] - c["wm"]).abs().max()))
+            sa = _adam_step(torch, {"m": c["gm"], "v": c["gv"]}, 1, ocfg)
+            sb = _adam_step(torch, {"m": c["wm"], "v": c["wv"]}, 1, ocfg)
+            p, q = c["gp"].double(), c["wp"].double()
+            bound = lr * (sa - sb).abs() \
+                + 16 * 2.0 ** -24 * (q.abs() + lr * (sb.abs() + 1))
+            ratio = max(ratio, float(((p - q).abs() / bound).max()))
+            del c, sa, sb, p, q, bound
+        grad_rel = max(grad_rel, err / max(scale, 1e-30))
+        param_ratio = max(param_ratio, ratio)
+        if not err <= tol * scale:
+            problems.append(f"leaf {i} gradient max |err| {err} > {tol} x "
+                            f"{scale}")
+        if not ratio <= 1.0:
+            problems.append(f"leaf {i} parameters off their bound "
+                            f"(x{ratio})")
+    return {"loss": float(gl), "cpu_loss": float(wl),
+            "loss_rel_err": loss_rel, "grad_norm": float(gn),
+            "cpu_grad_norm": float(wn), "grad_norm_rel_err": gn_rel,
+            "grad_max_rel_err": grad_rel,
+            "param_err_over_bound": param_ratio, "tol": tol}, problems
+
+
+def _lm_train_vs_cpu(torch, cfg, ocfg, seed: int):
+    """Check (a): one float32 step (TF32 off) of ``cfg`` at full width on
+    the card and on the CPU from the same parameters (drawn on the card,
+    copied to the host), ``LM_TRAIN_CHECK``'s tokens in two
+    microbatches.  The CPU side holds the parameters, AdamW's two
+    moments, the accumulator, a microbatch's gradients and the update's
+    temporaries: at 2 layers ~51 GB; with less MemAvailable the check
+    runs at 1 layer and says why."""
+    import dataclasses
+
+    from repro_torch.launch.cells import lm_param_flops, make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import tree_map
+
+    n_seq, n_tok, n_mb = LM_TRAIN_CHECK
+    avail = _mem_available()
+
+    def need(layers):
+        c = dataclasses.replace(cfg, n_layers=layers)
+        p = lm_param_flops(c)[0] * 4
+        return 4 * p + 5 * c.vocab * c.d_model * 4 + 4 * 2**30
+
+    layers, why = cfg.n_layers, None
+    if avail < need(layers):
+        why = (f"MemAvailable {avail} B < {need(layers)} B reckoned for "
+               f"{layers} layers on the CPU")
+        layers = 1
+    cfg32 = dataclasses.replace(cfg, n_layers=layers, dtype=torch.float32)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm_train: TF32 is on for float32 matmuls before the check")
+    card = tfm.LM(cfg32, device=DEVICE, seed=seed)
+    host = tfm.LM(cfg32, device="cpu",
+                  params=tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                  card.params()))
+    tokens = torch.randint(0, cfg.vocab, (n_seq, n_tok), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(seed + 5))
+    step = make_lm_train_step(cfg32, ocfg, n_mb, lr=TRAIN_LR)
+    (got, card_s), (want, host_s) = (
+        _timed(torch, lambda: step(card, adamw_init(card.params(), ocfg),
+                                   tokens.to(DEVICE))),
+        _timed(torch, lambda: step(host, adamw_init(host.params(), ocfg),
+                                   tokens)))
+    fields, problems = _lm_step_checks(
+        torch, (card.params(),) + got[1:], (host.params(),) + want[1:],
+        TRAIN_LR, LM_TRAIN_CHECK_TOL, ocfg)
+    fields.update({"layers": layers, "layers_cut_because": why,
+                   "mem_available_bytes": avail,
+                   "cpu_bytes_reckoned": need(layers), "dtype": "float32",
+                   "tf32": torch.backends.cuda.matmul.allow_tf32,
+                   "tokens": [n_seq, n_tok], "microbatches": n_mb,
+                   "lr": TRAIN_LR, "card_s": card_s, "cpu_s": host_s})
+    return fields, problems
+
+
+def _train_lm_profile(torch, seed: int) -> tuple:
+    """Check (d): ``train_lm`` at ``examples/torch_train_lm.py``'s profile
+    on the card, checkpoints every 100 steps, then a second run resumed
+    from a copy of the first run's checkpoints up to step 200.  Returns
+    (fields, problems)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    from repro_torch.launch.train import train_lm
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", os.path.join(HERE, "examples", "torch_train_lm.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    profile, n, every, resume = LM_TRAIN_RUN
+    pcfg, batch, seq = example.profile_config(profile)
+    root = os.path.join(HERE, "build", "lm_train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    whole, resumed = os.path.join(root, "whole"), os.path.join(root, "resumed")
+
+    def run(ckpt_dir):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train_lm(pcfg, n, batch, seq, ckpt_dir, every, 20,
+                            seed=seed, device=DEVICE)[1]
+
+    want, whole_s = _timed(torch, lambda: run(whole))
+    os.makedirs(resumed)
+    for name in os.listdir(whole):
+        if re.fullmatch(r"step_(\d+)\.(npz|json)", name) \
+                and int(name.split("_")[1].split(".")[0]) <= resume:
+            shutil.copy(os.path.join(whole, name), resumed)
+    got, resumed_s = _timed(torch, lambda: run(resumed))
+    shutil.rmtree(root, ignore_errors=True)
+    tail = [(i, l) for i, l in want if i >= resume]
+    problems = []
+    if [i for i, _ in got] != [i for i, _ in tail]:
+        problems.append(f"the resumed run logged steps {[i for i, _ in got]}"
+                        f", not {[i for i, _ in tail]}")
+    diff = max((abs(a - b) / abs(b) for (_, a), (_, b) in zip(got, tail)),
+               default=float("inf"))
+    if not diff <= LM_TRAIN_RESUME_TOL:
+        problems.append(f"the resumed run's losses differ by {diff} > "
+                        f"{LM_TRAIN_RESUME_TOL}")
+    first, last = want[0][1], want[-1][1]
+    if not last < 0.8 * first:
+        problems.append(f"train_lm did not learn: loss {first} -> {last}")
+    return {"profile": profile, "steps": n, "ckpt_every": every,
+            "resumed_at": resume, "losses": want, "resumed_losses": got,
+            "resumed_max_rel_diff": diff, "first_loss": first,
+            "last_loss": last, "whole_s": whole_s,
+            "resumed_s": resumed_s}, problems
+
+
+def phase_lm_train(torch, seed: int):
+    """qwen3-14b trained on the card at its published width (d 5,120, GQA
+    40/8, hd 128, d_ff 17,408, vocab 151,936, qk_norm), bf16 compute on
+    float32 masters, AdamW ``fp32`` (its ``opt_state_mode``),
+    ``remat="full"``, 2 of its 40 layers (the cut is depth only), through
+    ``launch.cells.make_lm_train_step`` and ``launch.train.train_lm``:
+
+      (a) check     the card against the CPU in float32 (TF32 off), 2
+                    sequences of 64 tokens in 2 microbatches, one step
+                    from the same parameters: loss and grad_norm within
+                    1e-4 relative, each gradient (the first moment)
+                    within 1e-4 of its leaf's largest entry, every
+                    parameter within lr·|Δstep| + 16 ulps;
+      (b) microbatches  4 microbatches against 1 over the same 8
+                    sequences of 512 tokens, bf16, at lr 0 (the
+                    parameters stay): loss and grad_norm within 1e-2;
+      (c) steps     ``train_4k``'s sequence of 4,096 and its 4
+                    microbatches at a global batch of 8 (256 cut): 32,768
+                    tokens a step, one warm-up step and 5 timed: step
+                    seconds (median), tokens/s, the peak around each
+                    step, model FLOP/s as 6·active·tokens over the step
+                    time beside the dense bf16 peak, one more step's
+                    device time by op; the loss finite at every step;
+      (d) train_lm  ``examples/torch_train_lm.py``'s small profile, 300
+                    steps with a checkpoint every 100, and a second run
+                    resumed at step 200: the last loss under 0.8 × the
+                    first, the resumed run's losses the uninterrupted
+                    run's within 1e-4 relative;
+      (e)           no hand-written kernel runs on this path: the four
+                    launch counters read 0."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.launch.cells import lm_param_flops, make_lm_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.tree import flatten
+
+    t_phase = time.perf_counter()
+    _zero_launches()
+    arch = get_arch(LM_ARCH)
+    full, shape = arch.config, arch.shape("train_4k")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    ocfg = AdamWConfig(state_mode=arch.opt_state_mode)
+    n_mb, seq = shape.microbatches, shape.seq_len
+    problems = []
+    out = {"phase": "lm_train", "arch": LM_ARCH,
+           "config": {k: getattr(full, k) for k in (
+               "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+               "vocab", "qk_norm", "rope_theta", "attn_chunk", "remat")},
+           "dtype": "bfloat16", "param_dtype": "float32",
+           "opt_state_mode": arch.opt_state_mode,
+           "cuts": {"depth": f"{LM_TRAIN_LAYERS} of {full.n_layers} layers",
+                    "batch": f"global batch {shape.global_batch} cut to "
+                             f"{LM_TRAIN_BATCH}: {n_mb} microbatches of "
+                             f"{LM_TRAIN_BATCH // n_mb} x {seq} tokens"}}
+    print(f"lm_train: {out['cuts']['depth']}, {out['cuts']['batch']}",
+          flush=True)
+
+    # (a) the card against the CPU, float32
+    out["check"], more = _lm_train_vs_cpu(torch, cfg, ocfg, seed)
+    problems.extend(f"lm_train check: {m}" for m in more)
+    if out["check"]["layers_cut_because"]:
+        print(f"lm_train: the check runs at 1 layer: "
+              f"{out['check']['layers_cut_because']}", flush=True)
+    _free(torch)
+
+    model = tfm.LM(cfg, device=DEVICE, seed=seed)
+    opt = adamw_init(model.params(), ocfg)
+    total, active = lm_param_flops(cfg)
+    out["weights"] = {"params": total, "active": active,
+                      "bytes": _nbytes(model.params()),
+                      "adamw_bytes": _nbytes(opt)}
+
+    # (b) microbatches: the same 8 sequences in 4 parts and in 1, lr 0.
+    # At random weights every part's loss is near the mean, so grad_norm
+    # is the number that shows a step that trained on part of the batch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 6)
+    toks = torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_MB_SEQ),
+                         generator=gen, dtype=torch.int32, device=DEVICE)
+    by_mb = {}
+    for n in (n_mb, 1):
+        _, _, loss, gn = make_lm_train_step(cfg, ocfg, n, lr=0.0)(
+            model, opt, toks)
+        by_mb[n] = (float(loss), float(gn))
+    (l4, g4), (l1, g1) = by_mb[n_mb], by_mb[1]
+    rel = [abs(l4 - l1) / abs(l1), abs(g4 - g1) / abs(g1)]
+    out["microbatches"] = {"tokens": [LM_TRAIN_BATCH, LM_TRAIN_MB_SEQ],
+                           "loss": [l4, l1], "grad_norm": [g4, g1],
+                           "rel_err": rel, "tol": LM_TRAIN_MB_TOL,
+                           "of": [n_mb, 1]}
+    if not max(rel) <= LM_TRAIN_MB_TOL:
+        problems.append(f"lm_train: {n_mb} microbatches against 1: loss / "
+                        f"grad_norm rel err {rel} > {LM_TRAIN_MB_TOL}")
+    with torch.no_grad():            # a zero state again for the steps
+        for t in flatten(opt):
+            t.zero_()
+    del toks
+    _free(torch)
+
+    # (c) timed bf16 steps at train_4k's sequence and microbatches
+    step = make_lm_train_step(cfg, ocfg, n_mb, lr=LM_TRAIN_LR)
+    tokens = LM_TRAIN_BATCH * seq
+    batches = [torch.as_tensor(lm_batch(i, LM_TRAIN_BATCH, seq, cfg.vocab,
+                                        seed), device=DEVICE)
+               for i in range(LM_TRAIN_STEPS + 2)]
+    losses, gnorms, secs, peaks = [], [], [], []
+    for i in range(LM_TRAIN_STEPS + 1):         # step 0 warms up
+        _reset_peak(torch)
+        res, s = _timed(torch, lambda: step(model, opt, batches[i]))
+        peaks.append(torch.cuda.max_memory_allocated()
+                     if DEVICE == "cuda" else None)
+        losses.append(float(res[2]))
+        gnorms.append(float(res[3]))
+        secs.append(s)
+    warmup_s, secs = secs[0], secs[1:]
+    profile = _op_device_ms(torch, lambda: step(model, opt, batches[-1])) \
+        if DEVICE == "cuda" else {}
+    med = statistics.median(secs)
+    flops = 6 * active * tokens
+    # the reference's model FLOPs count the embedding's vocab·d as a
+    # product, but it runs as a gather (and its gradient as a scatter):
+    # the products that run are the rest
+    products = 6 * (active - cfg.vocab * cfg.d_model) * tokens
+    out["steps"] = {"tokens_per_step": tokens, "warmup_s": warmup_s,
+                    "step_s": secs, "step_s_median": med,
+                    "tokens_per_s": tokens / med, "model_flops": flops,
+                    "flop_per_s": flops / med,
+                    "share_of_bf16_peak": flops / med / BF16_FLOPS_PER_S,
+                    "product_flops": products,
+                    "product_share_of_bf16_peak":
+                        products / med / BF16_FLOPS_PER_S,
+                    "peak_gib": max(peaks) / 2**30
+                    if DEVICE == "cuda" else None,
+                    "step_peak_bytes": peaks, "losses": losses,
+                    "grad_norms": gnorms, "profiled_step": profile}
+    if not all(map(math.isfinite, losses + gnorms)):
+        problems.append(f"lm_train: a loss or grad_norm is not finite: "
+                        f"{losses} {gnorms}")
+    del model, opt, batches, res, step
+    _free(torch)
+
+    # (d) train_lm with checkpoints and a resume
+    out["train_lm"], more = _train_lm_profile(torch, seed)
+    problems.extend(f"lm_train train_lm: {m}" for m in more)
+
+    out["launches"] = _launch_counts()
+    if any(out["launches"].values()):
+        problems.append(f"lm_train: a hand-written kernel launched "
+                        f"{out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def phase_dryrun(torch, lm_serve: dict, lm_train: dict):
+    """``launch.dryrun.run_cell`` on three cut cells on the meta device,
+    each built with the configuration the phase that ran it holds: the
+    ``lm_train`` step (2 layers, float32 masters, global batch 8 in 4
+    microbatches of 4,096), ``lm_serve``'s prefill of 32,768 tokens at
+    batch 1 and one ``lm_serve`` decode step at batch 4 against a 32,768
+    cache (40 layers, bf16 parameters).  Each reckoned peak beside the
+    peak measured around that same call alone in this run (the counter
+    reset just before it), and the reckoned FLOPs beside the model FLOPs;
+    a reckoned peak more than 15% from the measured one fails."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.cells import cell_for
+    from repro_torch.launch.dryrun import run_cell
+
+    t_phase = time.perf_counter()
+    arch = get_arch(LM_ARCH)
+    full = arch.config
+    train = dataclasses.replace(arch, config=dataclasses.replace(
+        full, n_layers=LM_TRAIN_LAYERS))
+    serve = dataclasses.replace(arch, config=dataclasses.replace(
+        full, param_dtype=torch.bfloat16))
+    cases = [
+        ("lm_train step", train, dataclasses.replace(
+            arch.shape("train_4k"), global_batch=LM_TRAIN_BATCH),
+         lm_train["steps"]["step_peak_bytes"][-1]),
+        ("lm_serve prefill", serve, dataclasses.replace(
+            arch.shape("prefill_32k"), global_batch=1),
+         lm_serve["prefill"]["peak_bytes"]),
+        ("lm_serve decode step", serve, dataclasses.replace(
+            arch.shape("decode_32k"), global_batch=LM_DECODE_BATCH),
+         lm_serve["decode"]["step_peak_bytes"]),
+    ]
+    out_dir = os.path.join(HERE, "build", "dryrun_smoke")
+    rows, problems = [], []
+    for what, a, shape, measured in cases:
+        rec = run_cell(a.arch_id, shape.name, out_dir=out_dir, force=True,
+                       cell=cell_for(a, shape))
+        if not rec["ok"]:
+            problems.append(f"dryrun: {what} failed: {rec['error']}")
+            continue
+        reck = rec["memory"]["peak_bytes_per_device"]
+        miss = abs(reck - measured) / measured if measured else None
+        rows.append({"cell": what, "arch": a.arch_id, "shape": shape.name,
+                     "batch": shape.global_batch,
+                     "layers": a.config.n_layers,
+                     "reckoned_peak_gib": reck / 2**30,
+                     "measured_peak_gib": measured / 2**30
+                     if measured else None,
+                     "peak_miss": miss, "tol": DRYRUN_PEAK_TOL,
+                     "reckoned_flops": rec["cost"]["flops"],
+                     "model_flops": rec["meta"]["model_flops"],
+                     "bytes_accessed": rec["cost"]["bytes accessed"],
+                     "dominant": rec["roofline"]["dominant"],
+                     "bound_s": rec["roofline"]["bound_s"],
+                     "fits": rec["memory"]["fits"],
+                     "trace_s": rec["wall_s"]})
+        if miss is None or not miss <= DRYRUN_PEAK_TOL:
+            problems.append(f"dryrun: {what} reckoned peak {reck} B against "
+                            f"{measured} B measured (miss {miss})")
+    emit({"phase": "dryrun", "mesh": "h100x1", "cells": rows,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail("; ".join(problems))
+    return rows
 
 
 _COMPARE_CHILD = """
@@ -4942,8 +5427,11 @@ def main(argv=None) -> int:
         return compare(args.compare, args.seed)
 
     dev = phase_device(torch)
+    products_graph = start_products_graph(args.seed)
     phase_build()
     phase_analysis()
+    # the host arrays are ready before the timed phases begin
+    products_host, products_make_s = products_graph()
     cases, worst = phase_kernels(torch, args.seed)
     masks, mask_launches = phase_masks(torch, args.seed)
     stream = make_stream(args.seed, args.ticks * BATCH)
@@ -4970,7 +5458,9 @@ def main(argv=None) -> int:
     bags = phase_embedding_bag(torch, args.seed)
     _, bag_launches = phase_recsys_serve(torch, args.seed)
     _, train_launches = phase_recsys_train(torch, args.seed)
-    graph, graph_info = make_products_graph(torch, args.seed)
+    graph, graph_info = make_products_graph(torch, products_host,
+                                            products_make_s)
+    del products_host
     sums = phase_segment_sum(torch, args.seed, graph,
                              graph_info["max_in_degree"])
     _, sum_launches = phase_gin_infer(torch, args.seed, graph, graph_info)
@@ -4989,8 +5479,11 @@ def main(argv=None) -> int:
     if DEVICE == "cuda" and torch.cuda.memory_allocated() >= 2**30:
         fail(f"{torch.cuda.memory_allocated()} bytes still allocated on the "
              "card before the LM phases")
-    phase_lm_serve(torch, args.seed)
+    lm_serve = phase_lm_serve(torch, args.seed)
     phase_moe_serve(torch, args.seed)
+    _free(torch)
+    lm_train = phase_lm_train(torch, args.seed)
+    phase_dryrun(torch, lm_serve, lm_train)
 
     def entry(name, source, replaces, launches, rows, timed, **extra):
         row = next(r for r in rows if r["case"] == timed)

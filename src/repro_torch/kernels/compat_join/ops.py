@@ -26,15 +26,40 @@ element for element.
 launches (one per call that reaches the card), and
 ``compat_join_pairs.launches_by_slots`` the same launches by slot count
 S; ``chip_smoke.py`` zeroes and reads them around each path.
+
+``normalize_spec`` is the reference's static-key cache: a spec's
+``(rel, trel)`` as nested tuples, the same objects for every call with
+the same content.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
+
+import numpy as np
 
 from repro_torch.core.join import as_window, n_slots_of
 from repro_torch.kernels.compat_join import kernel as K
 from repro_torch.kernels.compat_join import ref as R
+
+
+@functools.lru_cache(maxsize=1024)
+def _spec_from_bytes(rel_bytes, rel_shape, trel_bytes, trel_shape):
+    rel = np.frombuffer(rel_bytes, dtype=np.bool_).reshape(rel_shape)
+    trel = np.frombuffer(trel_bytes, dtype=np.int8).reshape(trel_shape)
+    return (tuple(map(tuple, rel.tolist())),
+            tuple(map(tuple, trel.tolist())))
+
+
+def normalize_spec(rel, trel):
+    """Hashable nested-tuple ``(rel, trel)`` static key, cached by content
+    (at most 1,024 specs): every call with the same spec gets back the
+    same tuple objects."""
+    rel = np.ascontiguousarray(np.asarray(rel, dtype=np.bool_))
+    trel = np.ascontiguousarray(np.asarray(trel, dtype=np.int8))
+    return _spec_from_bytes(rel.tobytes(), rel.shape,
+                            trel.tobytes(), trel.shape)
 
 
 def compat_join_pairs(bind_a, ets_a, valid_a, bind_b, ets_b, valid_b,

@@ -4,6 +4,8 @@ The wrapper in ``ops`` takes it for CPU tensors and for the REF backend;
 on the card only the tests and ``chip_smoke.py`` call it.  Semantics of
 ``repro.kernels.segment_reduce``: ``out[n] = sum of msg[e] over dst[e]
 == n``, cast back to the message dtype; ids outside [0, N) are dropped.
+``segment_mean`` divides by the segment's count, as the reference's
+plain version does.
 
 It accumulates in float64, so that it can hold the kernel's float32 sums
 to account: ``index_add_``'s float32 atomics add a hub's terms one by one
@@ -32,3 +34,11 @@ def segment_sum(dst, msg, n_nodes: int):
     for lo in range(0, msg.shape[0], rows):
         out.index_add_(0, seg[lo:lo + rows], msg[lo:lo + rows].double())
     return out[:n_nodes].to(msg.dtype)
+
+
+def segment_mean(dst, msg, n_nodes: int, eps: float = 1e-9):
+    """The segment sum over each segment's message count (at least
+    ``eps``) -> [n_nodes, D] in msg's dtype."""
+    s = segment_sum(dst, msg, n_nodes)
+    cnt = segment_sum(dst, msg.new_ones((msg.shape[0], 1)), n_nodes)
+    return s / cnt.clamp(min=eps)

@@ -114,6 +114,10 @@ def gqa_attention(
     for c in range(n_chunks):
         kb = _kv_f32(k[:, c * cs:(c + 1) * cs])    # [B, Hkv, cs, hd]
         vb = _kv_f32(v[:, c * cs:(c + 1) * cs])
+        # the switch covers this forward product (and its recompute under
+        # remat, which runs this code again); its backward runs outside
+        # it, in IEEE float32 (the train step holds TF32 off): float32
+        # gradients are not exact in TF32
         with matmul_flags(allow_tf32=tf32):
             sc = torch.matmul(qf, kb.transpose(-1, -2))
         sc = sc.view(b, hkv, rep, s, cs)

@@ -59,7 +59,12 @@ def _dispatch_group(xl, p, cfg, cap: int):
 
     # aux-loss statistics
     me = gates.mean(dim=0)
-    ce = torch.bincount(flat_e, minlength=e).float() / (tg * k)
+    # each expert's share of the assignments: a scatter of ones gives
+    # bincount's integers on every device, the meta device included
+    # (bincount has no meta kernel)
+    cnt = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    ce = cnt.float() / (tg * k)
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return xe, (slot, st, sw), lb, z

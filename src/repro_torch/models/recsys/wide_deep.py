@@ -12,7 +12,9 @@ in the wide table runs on the segment_sum kernel.
 Parameters keep the reference's tree layout (``tables`` [F, V, D],
 ``wide`` [V], ``mlp`` [{w, b}], ``head``, ``bias``), so the reference's
 weights carry across with ``params_from_numpy``, and ``params()`` reads
-them back in that layout.  The reference's sharding specs
+them back in that layout.  ``forward(params, batch, cfg)`` is the
+reference's functional form on such a tree; the module's forward runs
+it on its own parameters.  The reference's sharding specs
 (``param_specs``) are JAX sharding and are not ported.
 """
 
@@ -98,24 +100,36 @@ class WideDeep(nn.Module):
     def forward(self, batch: dict) -> torch.Tensor:
         """batch: sparse_ids int32 [B, F], dense [B, n_dense], wide_ids
         int32 [B, n_crosses] (-1 padded multi-hot bags) -> logits [B]."""
-        ids = batch["sparse_ids"].long()              # [B, F]
-        b, f = ids.shape
-        fld = torch.arange(f, device=ids.device)[None, :]
-        emb = self.tables[fld, ids]                   # [B, F, D]
-        h = torch.cat([emb.reshape(b, -1), batch["dense"]],
-                      dim=-1).to(self.cfg.dtype)
-        for w, bias in zip(self.mlp_w, self.mlp_b):
-            h = torch.relu(h.to(w.dtype) @ w + bias)
-        deep_logit = (h @ self.head)[:, 0]
+        return _forward(self.params(), batch, self.cfg, self.backend)
 
-        # wide: multi-hot bag sum over hashed cross ids
-        wid = batch["wide_ids"]                       # [B, K], -1 padded
-        bags = torch.arange(b, dtype=torch.int32,
-                            device=wid.device).repeat_interleave(wid.shape[1])
-        wide_logit = eb.embedding_bag(
-            wid.reshape(-1), bags, self.wide[:, None], b,
-            backend=self.backend)[:, 0]
-        return deep_logit + wide_logit + self.bias
+
+def _forward(params: dict, batch: dict, cfg: WideDeepConfig, backend: str):
+    ids = batch["sparse_ids"].long()              # [B, F]
+    b, f = ids.shape
+    fld = torch.arange(f, device=ids.device)[None, :]
+    emb = params["tables"][fld, ids]              # [B, F, D]
+    h = torch.cat([emb.reshape(b, -1), batch["dense"]],
+                  dim=-1).to(cfg.dtype)
+    for lp in params["mlp"]:
+        h = torch.relu(h.to(lp["w"].dtype) @ lp["w"] + lp["b"])
+    deep_logit = (h @ params["head"])[:, 0]
+
+    # wide: multi-hot bag sum over hashed cross ids
+    wid = batch["wide_ids"]                       # [B, K], -1 padded
+    bags = torch.arange(b, dtype=torch.int32,
+                        device=wid.device).repeat_interleave(wid.shape[1])
+    wide_logit = eb.embedding_bag(
+        wid.reshape(-1), bags, params["wide"][:, None], b,
+        backend=backend)[:, 0]
+    return deep_logit + wide_logit + params["bias"]
+
+
+def forward(params: dict, batch: dict, cfg: WideDeepConfig) -> torch.Tensor:
+    """The reference's functional forward on a parameter tree (``init``
+    or ``params_from_numpy``) -> logits [B]; the embedding_bag backend is
+    ``cfg.backend`` resolved on the tree's device."""
+    return _forward(params, batch, cfg,
+                    resolve_backend(cfg.backend, params["wide"].device))
 
 
 def bce_loss(model: WideDeep, batch: dict):

@@ -8,11 +8,12 @@ dataclass.  The functions keep the reference's functional form on its
 parameter tree: ``forward(params, tokens, cfg)``, ``loss_fn``,
 ``prefill`` and ``serve_step``.  The tree holds ``embed``,
 ``final_norm``, ``lm_head`` and ``layers``, a dict of ``[L, ...]``
-stacked leaves (as ``jax.vmap(_init_layer)`` makes them); a layer reads
-its slice of each leaf as a view and casts it to ``cfg.dtype``, as the
-reference casts every parameter before use.  So parameters stored in
-``cfg.dtype`` compute exactly what float32 masters compute.  ``LM`` holds
-such a tree as an ``nn.Module``.
+stacked leaves (as ``jax.vmap(_init_layer)`` makes them).  Each stacked
+leaf is unbound once per call into per-layer views (so its gradient is
+stacked once in the backward), and a layer casts its views to
+``cfg.dtype``, as the reference casts every parameter before use.  So
+parameters stored in ``cfg.dtype`` compute exactly what float32 masters
+compute.  ``LM`` holds such a tree as an ``nn.Module``.
 
 ``serve_step`` writes the new K/V into the caller's cache tensors in
 place (the reference's scan returns new stacked caches) and returns them
@@ -35,7 +36,7 @@ from repro_torch.core.state import resolve_device
 from repro_torch.models.attention import attention_block
 from repro_torch.models.common import dense_init, f32_reductions, rms_norm
 from repro_torch.models.moe import moe_ffn
-from repro_torch.optim.tree import tree_map
+from repro_torch.optim.tree import flatten, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,10 +133,20 @@ def init(gen: torch.Generator, cfg: LMConfig, *, device=None) -> dict:
 # --------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------- #
-def _layer_params(layers: dict, l: int, dtype) -> dict:
-    """Layer ``l``'s slice of every stacked leaf (a view), cast to
-    ``dtype`` (no copy where the leaf is already in it)."""
-    return tree_map(lambda v: v[l].to(dtype), layers)
+def _unbind_layers(layers: dict) -> list:
+    """The ``[L, ...]`` stacked leaves as L trees of per-layer views, each
+    leaf unbound once: its gradient is then one ``stack`` in the
+    backward, where indexing ``v[l]`` layer by layer would add a
+    zero-filled ``[L, ...]`` tensor into it once per layer."""
+    views = [v.unbind(0) for v in flatten(layers)]
+    return [unflatten(layers, [u[l] for u in views])
+            for l in range(len(views[0]))]
+
+
+def _cast(lp: dict, dtype) -> dict:
+    """A layer's views cast to ``dtype`` (no copy where a leaf is already
+    in it)."""
+    return tree_map(lambda v: v.to(dtype), lp)
 
 
 def _embed(params, tokens, cfg: LMConfig):
@@ -173,8 +184,8 @@ def _layer(x, lp, cfg: LMConfig, kv_cache=None, positions=None):
     return x + y, aux, new_cache
 
 
-def _body(x, layers, l: int, cfg: LMConfig):
-    y, aux, _ = _layer(x, _layer_params(layers, l, cfg.dtype), cfg)
+def _body(x, lp, cfg: LMConfig):
+    y, aux, _ = _layer(x, _cast(lp, cfg.dtype), cfg)
     return y, aux
 
 
@@ -183,16 +194,18 @@ def forward(params, tokens, cfg: LMConfig):
     """tokens [B, S] -> (logits [B, S, V], aux loss).  Under
     ``remat="full"`` each layer is recomputed in the backward
     (``torch.utils.checkpoint``) while autograd records; the outputs are
-    the same."""
+    the same.  The recompute reads the same per-layer views (no copy of
+    a stack); it runs in the backward, outside this function's
+    reduction scope, so a train step holds the scope around its
+    backward too (``launch.cells.make_lm_train_step``)."""
     x = _embed(params, tokens, cfg)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     auxs = []
-    for l in range(cfg.n_layers):
+    for lp in _unbind_layers(params["layers"]):
         if remat:
-            x, aux = checkpoint(_body, x, params["layers"], l, cfg,
-                                use_reentrant=False)
+            x, aux = checkpoint(_body, x, lp, cfg, use_reentrant=False)
         else:
-            x, aux = _body(x, params["layers"], l, cfg)
+            x, aux = _body(x, lp, cfg)
         auxs.append(aux)
     return _logits(params, x, cfg), torch.stack(auxs).sum()
 
@@ -224,9 +237,9 @@ def serve_step(params, tokens, cache, cfg: LMConfig):
     kc, vc, length = cache
     x = _embed(params, tokens, cfg)
     positions = length[:, None]
-    for l in range(cfg.n_layers):
-        x, _, _ = _layer(x, _layer_params(params["layers"], l, cfg.dtype),
-                         cfg, kv_cache=(kc[l], vc[l], length),
+    for l, lp in enumerate(_unbind_layers(params["layers"])):
+        x, _, _ = _layer(x, _cast(lp, cfg.dtype), cfg,
+                         kv_cache=(kc[l], vc[l], length),
                          positions=positions)
     logits = _logits(params, x[:, -1:], cfg)[:, 0]
     return logits, (kc, vc, length + tokens.shape[1])
@@ -243,9 +256,8 @@ def prefill(params, tokens, cfg: LMConfig):
     x = _embed(params, tokens, cfg)
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
     k_all, v_all = x.new_empty(shape), x.new_empty(shape)
-    for l in range(cfg.n_layers):
-        x, _, (k, v, _) = _layer(
-            x, _layer_params(params["layers"], l, cfg.dtype), cfg)
+    for l, lp in enumerate(_unbind_layers(params["layers"])):
+        x, _, (k, v, _) = _layer(x, _cast(lp, cfg.dtype), cfg)
         k_all[l], v_all[l] = k, v
         del k, v
     logits = _logits(params, x[:, -1:], cfg)[:, 0]

@@ -92,6 +92,8 @@ MODULES = [
     "repro_torch.configs.deepseek_coder_33b",
     "repro_torch.configs.qwen3_14b", "repro_torch.configs.internlm2_20b",
     "repro_torch.configs.arctic_480b", "repro_torch.configs.grok1_314b",
+    "repro_torch.launch.train", "repro_torch.launch.dryrun",
+    "repro_torch.launch.roofline",
 ]
 
 
@@ -139,11 +141,13 @@ def _plan():
     "shared_service", "init_node_state", "stream_session", "stream_server",
     "service_restore", "session_frontier", "service_frontier",
     "session_restore_ingest", "sharded_service", "mesh_session",
-    "make_mesh", "sharded_tick", "gat", "pna", "nequip", "lm", "lm_init"])
+    "make_mesh", "sharded_tick", "gat", "pna", "nequip", "lm", "lm_init",
+    "train_lm"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
     from repro_torch.api import StreamSession
     from repro_torch.core.distributed import build_sharded_tick, make_mesh
     from repro_torch.core.share import init_node_state, node_spec
+    from repro_torch.launch.train import train_lm
     from repro_torch.launch.stream_serve import StreamServer
     from repro_torch.runtime.mesh import ShardedSearchService
 
@@ -210,6 +214,8 @@ def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
         "lm": lambda **kw: LM(qwen3_14b.smoke_config(), **kw),
         "lm_init": lambda **kw: transformer.init(
             torch.Generator(), qwen3_14b.smoke_config(), **kw),
+        "train_lm": lambda **kw: train_lm(qwen3_14b.smoke_config(), 1, 2, 8,
+                                          **kw),
         "batch_to_device": lambda **kw: batch_to_device(
             {"dense": np.zeros((2, 3), np.float32)}, **kw),
         "graph_to_device": lambda **kw: graph_to_device(

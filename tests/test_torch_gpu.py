@@ -1274,3 +1274,140 @@ def test_moe_on_card_equals_token_loop(cuda):
                     want[t] += topw[t, kk] * (h @ pd["w2"][e]).float()
         assert got.dtype == dtype
         assert _rel_frob(got, want) <= tol
+
+
+# --------------------------------------------------------------------- #
+# LM training on the card
+# --------------------------------------------------------------------- #
+def _lm_step_both(cuda, name, microbatches, lr):
+    """One float32 train step of ``name``'s smoke config (remat "full")
+    on the CPU and on the card from the same parameters: ((cpu, card),
+    ocfg), each (params, opt state, loss, grad_norm)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.launch.cells import make_lm_train_step
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.tree import tree_map
+
+    cfg = dataclasses.replace(importlib.import_module(
+        f"repro_torch.configs.{name}").smoke_config(), remat="full")
+    ocfg = AdamWConfig()
+    params = TT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    models = [TT.LM(cfg, device=cuda, params=tree_map(torch.clone, params)),
+              TT.LM(cfg, device="cpu", params=params)]
+    out = []
+    for model in models:
+        opt = adamw_init(model.params(), ocfg)
+        _, opt, loss, gn = make_lm_train_step(cfg, ocfg, microbatches, lr)(
+            model, opt, tokens.to(model.embed.device))
+        out.append((model.params(), opt, float(loss), float(gn)))
+    return out, ocfg
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("name", ["qwen3_14b", "arctic_480b"])
+def test_lm_train_step_on_card_equals_cpu(cuda, name, microbatches):
+    """One float32 step (TF32 off) on the card against the CPU: loss and
+    grad_norm within 1e-5 relative, each first moment within 1e-4 of its
+    leaf's largest entry, each parameter within lr·|Δstep| + 16 ulps
+    (Adam's first step maps a gradient near 0 to up to ±lr)."""
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    lr = 1e-3
+    ((gp, gs, gl, gn), (wp, ws, wl, wn)), ocfg = _lm_step_both(
+        cuda, name, microbatches, lr)
+    assert gl == pytest.approx(wl, rel=1e-5)
+    assert gn == pytest.approx(wn, rel=1e-5)
+
+    def adam(st):
+        m, v = st["m"].cpu().double(), st["v"].cpu().double()
+        return (m / (1 - ocfg.b1)) / (torch.sqrt(v / (1 - ocfg.b2))
+                                      + ocfg.eps)
+
+    for p, q, a, b in zip(flatten(gp), flatten(wp),
+                          flatten_up_to(gp, gs["leaves"]),
+                          flatten_up_to(wp, ws["leaves"])):
+        assert p.device.type == "cuda"
+        scale = float(b["m"].abs().max())
+        assert float((a["m"].cpu() - b["m"]).abs().max()) <= 1e-4 * scale
+        sa, sb = adam(a), adam(b)
+        q = q.detach().double()
+        tol = lr * (sa - sb).abs() \
+            + 16 * 2.0 ** -24 * (q.abs() + lr * (sb.abs() + 1))
+        assert bool(((p.detach().cpu().double() - q).abs() <= tol).all())
+
+
+def test_lm_train_backward_reduces_in_float32_on_card(cuda, monkeypatch):
+    """On the card, with the process flag on, each recomputed layer and
+    a product's gradient run with bf16 reduced-precision reductions off
+    (the flag is process-wide, read on the autograd engine's device
+    thread), and the flag is back on after the step."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.launch.cells import make_lm_train_step
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(qwen3_14b.smoke_config(), remat="full",
+                              dtype=torch.bfloat16)
+    model = TT.LM(cfg, device=cuda, seed=0)
+    mm = torch.backends.cuda.matmul
+    seen = {"layer": [], "grad": []}
+    real_layer = TT._layer
+
+    def layer(*a, **k):
+        seen["layer"].append(mm.allow_bf16_reduced_precision_reduction)
+        return real_layer(*a, **k)
+
+    def ffn(x, p):
+        h = x @ p["w1"]
+        if h.requires_grad:
+            h.register_hook(lambda g: seen["grad"].append(
+                mm.allow_bf16_reduced_precision_reduction))
+        return torch.nn.functional.silu(h) * (x @ p["w3"]) @ p["w2"]
+
+    monkeypatch.setattr(TT, "_layer", layer)
+    monkeypatch.setattr(TT, "_dense_ffn", ffn)
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = True
+    try:
+        ocfg = AdamWConfig()
+        make_lm_train_step(cfg, ocfg, 2, 1e-3)(
+            model, adamw_init(model.params(), ocfg),
+            torch.randint(0, cfg.vocab, (4, 32), device=cuda))
+        after = mm.allow_bf16_reduced_precision_reduction
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+    assert seen["layer"] == [False] * (2 * 2 * cfg.n_layers)
+    assert seen["grad"] and not any(seen["grad"])
+    assert after is True
+
+
+def test_train_lm_on_card_resumes(cuda, tmp_path):
+    """``train_lm`` on the card at a tiny config: 6 steps with a
+    checkpoint every 2, and a run stopped at 4 and resumed: the resumed
+    losses and final parameters equal the uninterrupted run's within
+    float32 reordering (1e-5 relative), and the loss falls."""
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.transformer import LMConfig
+    from repro_torch.optim.tree import flatten
+
+    cfg = LMConfig(name="tiny", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, head_dim=16, d_ff=128, vocab=256,
+                   attn_chunk=16, remat="none", dtype=torch.float32)
+    kw = dict(batch=4, seq=16, ckpt_every=2, log_every=1, device=cuda)
+    whole, want = train_lm(cfg, 6, ckpt_dir=str(tmp_path / "a"), **kw)
+    train_lm(cfg, 4, ckpt_dir=str(tmp_path / "b"), **kw)
+    resumed, got = train_lm(cfg, 6, ckpt_dir=str(tmp_path / "b"), **kw)
+    assert [i for i, _ in got] == [4, 5]
+    np.testing.assert_allclose([l for _, l in got],
+                               [l for _, l in want[4:]], rtol=1e-5)
+    for a, b in zip(flatten(resumed), flatten(whole)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert want[-1][1] < want[0][1]

@@ -22,6 +22,7 @@ call with more positional arguments than the port takes raises
 
 import importlib
 import inspect
+import os
 import pkgutil
 
 import numpy as np
@@ -39,11 +40,12 @@ JAX_ONLY = {"jit": "jax.jit compilation", "donate": "jit buffer donation",
 # key is a torch.Generator in the port (a numpy Generator keeps its
 # name), and the Wide&Deep and GNN losses take the port's nn.Module
 # (which holds the params and the config) where the reference takes its
-# params tree
+# params tree; the roofline's collectives are records, not HLO text
 RENAMED = {"rng": "gen"}
 RENAMED_IN = {"models.recsys.wide_deep.bce_loss": {"params": "model"},
               "models.gnn.models.node_classification_loss":
-                  {"params": "model"}}
+                  {"params": "model"},
+              "launch.roofline.collective_bytes": {"hlo_text": "records"}}
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
               inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -70,11 +72,26 @@ def _unwrap(member):
                                                   classmethod)) else member
 
 
+def _import_reference(rel: str):
+    """``repro.<rel>``, imported without changing this process's
+    ``XLA_FLAGS``: ``repro.launch.dryrun`` sets 512 virtual devices when
+    it is imported (for its own process), which a later JAX test in the
+    same worker would otherwise see."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.{rel}")
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
 def shared_callables(rel: str) -> list:
     """``(name, reference callable, port callable)`` for every public
     callable defined in the reference module ``repro.<rel>`` that the
     port's module of the same path also has."""
-    ref = importlib.import_module(f"repro.{rel}")
+    ref = _import_reference(rel)
     port = importlib.import_module(f"repro_torch.{rel}")
     out = []
     for name in sorted(dir(ref)):
@@ -378,6 +395,33 @@ def test_the_walk_reaches_the_sjtree_and_training_callables(rel, name):
     steps are shared callables the walk compares, and each follows the
     reference's positional order (the GNN loss with its module in the
     params slot)."""
+    found = {n: (r, t) for n, r, t in shared_callables(rel)}
+    assert name in found
+    r, t = found[name]
+    assert follows(_positional(t), _positional(r), f"{rel}.{name}")
+
+
+LAUNCH_CALLABLES = [
+    ("launch.cells", "make_lm_train_step"), ("launch.cells", "Cell"),
+    ("launch.cells", "build_cell"), ("launch.cells", "all_cells"),
+    ("launch.train", "train_lm"), ("launch.train", "main"),
+    ("launch.dryrun", "run_cell"), ("launch.dryrun", "main"),
+    ("launch.roofline", "collective_bytes"),
+    ("launch.roofline", "roofline_terms"),
+    ("kernels.segment_reduce.ref", "segment_mean"),
+    ("kernels.compat_join.ops", "normalize_spec"),
+    ("models.recsys.wide_deep", "forward"),
+]
+
+
+@pytest.mark.parametrize("rel,name", LAUNCH_CALLABLES,
+                         ids=[f"{r}.{n}" for r, n in LAUNCH_CALLABLES])
+def test_the_walk_reaches_the_launch_layer(rel, name):
+    """Not vacuous: LM training, the cells, the dry run, the roofline and
+    the small public names are shared callables the walk compares, and
+    each follows the reference's positional order (``Cell``'s fields
+    after the reference's shardings and the port's ``device``,
+    ``out_dir`` and ``argv`` keyword-only)."""
     found = {n: (r, t) for n, r, t in shared_callables(rel)}
     assert name in found
     r, t = found[name]

@@ -130,6 +130,25 @@ exit, nothing is caught and skipped):
                 ending identical to the uninterrupted run; prints edges/s
                 and tick p50/p99 for each n and the unsharded engines,
                 and a tick's device ms with the pair kernel's by step;
+  ranks         both meshes over ``torch.distributed``, one process a
+                rank (``torch.multiprocessing``, "spawn"; a FileStore
+                rendezvous; the ranks load the libraries the build phase
+                made): the capacity phase's two engines, C/n rows a
+                rank, over NCCL at world size 1 and over gloo at 2 and 4
+                ranks sharing the card (gloo stages CUDA tensors through
+                the host); checks: each rank's final state block k of
+                the one-process mesh's at the same n, the union of the
+                ranks' matches the unsharded engines' tick by tick,
+                overflow 0, 6 pair launches a tick at S = 1 on every
+                rank; a crash on every one of 4 ranks restored through
+                ``FaultTolerantLoop`` identical to the uninterrupted run;
+                the 4 ranks' checkpoint (one file a rank) restored on 2
+                ranks after tick 32 equal to the unsharded run; the
+                replica service at R = 8 on 2 ranks equal to the serve
+                phase's matches over its first 16 ticks; prints edges/s
+                and p50/p99 per world size beside the one-process mesh's,
+                the backend, and the collectives' host and device ms a
+                tick;
   sjtree        the paper's baseline comparison (Figures 14-17): the
                 SJ-tree (``core.sjtree``: every edge its own leaf, the
                 timing order checked by a host post-filter) against the
@@ -250,7 +269,7 @@ exit, nothing is caught and skipped):
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
-each capacity run, each SJ-tree run, each mask case's entry-point call,
+each capacity run, each rank of the ranks phase, each SJ-tree run, each mask case's entry-point call,
 recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
 each model of minibatch_infer, each case's timed steps of gnn_train);
@@ -366,14 +385,19 @@ def fail(msg: str) -> None:
 # --------------------------------------------------------------------- #
 # device / build
 # --------------------------------------------------------------------- #
-def phase_device(torch):
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch):
+    line = _card_line()
     print(line, flush=True)
     info = {"phase": "device", "nvidia_smi": line,
             "name": torch.cuda.get_device_name(0),
@@ -2325,6 +2349,7 @@ def phase_capacity(torch, args, stream):
 
     # -- the sharded engines at n = 1, 2, 4: the main path ---------------
     runs, by_slots_all, launches_all, keep = [], Counter(), 0, {}
+    finals = {}             # n -> host leaves of the final states (ranks)
     per_tick = 2 + 4        # chain: 2 level joins; two-chain: 2 + J1 + J2
     for n in CAPACITY_SHARDS:
         _free(torch)
@@ -2365,6 +2390,7 @@ def phase_capacity(torch, args, stream):
                                 for tk, s in zip(ticks, states)])})
         by_slots_all.update(by_slots)
         launches_all += launches
+        finals[n] = [x.cpu().numpy() for x in _flat(tuple(states))]
         if n == 4:
             keep = {"ticks": ticks, "final": states, "snaps": snaps,
                     "mesh": m}
@@ -2482,7 +2508,403 @@ def phase_capacity(torch, args, stream):
                           "state_leaves_equal": n_loop_leaves},
     }
     emit(out)
-    return out, launches_all, dict(by_slots_all)
+    return out, launches_all, dict(by_slots_all), {
+        "want": want, "finals": finals, "runs": runs}
+
+
+# --------------------------------------------------------------------- #
+# ranks: both meshes over torch.distributed, one process a rank
+# --------------------------------------------------------------------- #
+RANKS_RUNS = (("nccl", 1), ("gloo", 4), ("gloo", 2))   # 4 before 2: the
+RANKS_CKPT_TICK = 32       # 2 ranks restore the 4 ranks' checkpoint here
+RANKS_SERVICE = (8, 1)     # the replica service on 2 ranks: R, slots each
+RANKS_WAIT_S = 900         # a rank's longest wait for its turn
+
+
+def _rank_stage(torch, dist):
+    """Host ms spent in the tick's tensor collectives, by wrapping them
+    in this rank process (the tick calls them through
+    ``torch.distributed``): returns the counters."""
+    acc = {"calls": 0, "host_ms": 0.0}
+    for name in ("all_gather_into_tensor", "all_reduce"):
+        real = getattr(dist, name)
+
+        def timed(*a, real=real, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            acc["host_ms"] += (time.perf_counter() - t0) * 1e3
+            acc["calls"] += 1
+            return out
+        setattr(dist, name, timed)
+    return acc
+
+
+def _collective_device_ms(torch, fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in the collectives' device work
+    (NCCL kernels; under gloo, the copies that stage through the host —
+    the tick itself copies nothing between host and card), by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync(torch)
+    by, total = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not _dev_us(e):
+            continue
+        if "nccl" in e.key.lower() or "memcpy" in e.key.lower():
+            ms = _dev_us(e) / 1e3 / reps
+            by[e.key[:60]] = ms
+            total += ms
+    return {"device_ms": total, "by_name": by}
+
+
+def _rank_main(rank: int, world: int, backend: str, job: dict) -> None:
+    """One rank of the ranks phase: the capacity phase's two engines, a
+    ``C/n`` shard each, over the group; with 4 ranks a checkpoint after
+    ``RANKS_CKPT_TICK`` and a crash restored through
+    ``FaultTolerantLoop``; with 2, that checkpoint restored and the
+    replica service.  Writes ``rank{backend}{world}_{rank}.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.checkpoint import (
+        mesh_save_kwargs,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from repro_torch.core.distributed import (
+        _sharded_current_matches,
+        _state_specs,
+        build_sharded_tick,
+        make_mesh,
+    )
+    from repro_torch.core.state import init_state, make_batch
+    from repro_torch.kernels.compat_join import ops
+    from repro_torch.runtime.elastic import scale_to_mesh
+    from repro_torch.runtime.fault import FaultTolerantLoop, \
+        SimulatedFailure
+    from repro_torch.stream.generator import to_batches
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    # every rank of every run starts at once; a run's ranks begin when
+    # the parent names their turn, after the previous run has ended
+    ready_s = time.perf_counter() - job["t0"]
+    go = os.path.join(job["dir"], f"go_{backend}{world}")
+    deadline = time.perf_counter() + RANKS_WAIT_S
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            fail(f"ranks: rank {rank} of {backend} x {world} waited "
+                 f"{RANKS_WAIT_S} s for its turn")
+        time.sleep(0.01)
+    t_start = time.perf_counter()
+    store = dist.FileStore(os.path.join(job["dir"], f"store_{backend}"
+                                                    f"{world}"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    out = {"rank": rank, "backend": dist.get_backend(), "ready_s": ready_s}
+    try:
+        # the backend's communicator comes up on its first collective:
+        # bring it up here, timed, so that tick 0 does not carry it
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.ones(1, device=DEVICE))
+        _sync(torch)
+        out["first_collective_ms"] = (time.perf_counter() - t0) * 1e3
+        with open(job["stream"], "rb") as f:
+            stream = pickle.load(f)
+        plans = _cap_plans(stream)
+        batches = [make_batch(**b, device=DEVICE)
+                   for b in to_batches(stream, BATCH)]
+        m = make_mesh((world,), ("data",), devices=(DEVICE,) * world,
+                      group=dist.group.WORLD)
+        built = [build_sharded_tick(p, m, extract_matches=True)
+                 for _, p in plans]
+        ticks = [tk for tk, _ in built]
+        specs = tuple(_state_specs(s, ("data",)) for _, s in built)
+        stage = _rank_stage(torch, dist)
+        out["setup_s"] = time.perf_counter() - t_start
+        ops.compat_join_pairs.launches = 0        # this path's launches
+        ops.compat_join_pairs.launches_by_slots.clear()
+        states, snaps, got, lat = _drive(
+            torch, ticks, [s for _, s in built], batches,
+            snap_at=(RANKS_CKPT_TICK,))
+        out["launches"] = ops.compat_join_pairs.launches
+        out["launches_by_slots"] = dict(ops.compat_join_pairs
+                                        .launches_by_slots)
+        out["collective_calls_per_tick"] = stage["calls"] / len(batches)
+        out["collective_host_ms_per_tick"] = stage["host_ms"] / len(batches)
+        out["ticks"], out["lat"] = got, lat
+        out["collective_device"] = _collective_device_ms(
+            torch, lambda: [tk(s, batches[-1])
+                            for tk, s in zip(ticks, states)])
+        out["final"] = [x.cpu().numpy() for x in _flat(tuple(states))]
+        out["fold"] = [len(_sharded_current_matches(
+            p, s, world, group=dist.group.WORLD))
+            for (_, p), s in zip(plans, states)]
+        if world == 4:
+            snap = tuple(snaps[RANKS_CKPT_TICK])
+            save_checkpoint(job["ckpt"], RANKS_CKPT_TICK, snap,
+                            **mesh_save_kwargs(snap, m, specs))
+            crashed = []
+
+            def step(state, i):
+                if i == CAPACITY_CRASH_TICK and not crashed:
+                    crashed.append(i)
+                    raise SimulatedFailure("injected on every rank")
+                return tuple(tk(s, batches[i])[0]
+                             for tk, s in zip(ticks, state))
+
+            loop = FaultTolerantLoop(
+                os.path.join(job["dir"], f"loop{world}"), step,
+                lambda: tuple(build_sharded_tick(p, m)[1]
+                              for _, p in plans),
+                ckpt_every=CAPACITY_CKPT_EVERY, mesh=m, specs=specs)
+            final = loop.run(len(batches))
+            same = all(torch.equal(a, b) for a, b in zip(
+                _flat(tuple(final)), _flat(tuple(states))))
+            out["crash_restore"] = {"restarts": loop.restarts,
+                                    "crashed": crashed, "identical": same}
+        if world == 2:
+            # the 4 ranks' checkpoint: the global state read here,
+            # re-homed from 4 shards onto these 2, each rank its block
+            m4 = make_mesh((4,), ("data",), devices=(DEVICE,) * 4)
+            like = tuple(init_state(p, device=DEVICE) for _, p in plans)
+            full = restore_checkpoint(job["ckpt"], RANKS_CKPT_TICK, like)
+            moved = [scale_to_mesh(s, m4, m, sp)
+                     for s, sp in zip(full, specs)]
+            _, _, got_r, _ = _drive(torch, ticks, moved,
+                                    batches[RANKS_CKPT_TICK:])
+            out["restored_ticks"] = got_r
+            out["service"] = _rank_service(torch, dist, job, stream)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(job["dir"], f"rank{backend}{world}_{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+
+
+def _rank_service(torch, dist, job, stream) -> dict:
+    """The replica service over the group: ``RANKS_SERVICE`` replicas of
+    the serve phase's tenants and capacities, the serve phase's first
+    ``svc_ticks`` ticks; this rank's tenants' match multisets."""
+    from repro_torch.core.multi import SlotTickCache
+    from repro_torch.runtime.mesh import ShardedSearchService
+
+    n_rep, spr = RANKS_SERVICE
+    svc = ShardedSearchService(
+        n_rep, spr, devices=(DEVICE,) * n_rep, group=dist.group.WORLD,
+        level_capacity=LEVEL_CAP, l0_capacity=LEVEL_CAP, max_new=MAX_NEW,
+        tick_cache=SlotTickCache())
+    qids = [svc.register(q, w) for _, q, w in tenants(stream)]
+    rows, infos = [], []
+
+    def on_match(qid, bind, ets):
+        rows.append((qid, bind.copy(), ets.copy()))
+
+    _sync(torch)
+    t0 = time.perf_counter()
+    svc.serve_stream(stream[:job["svc_ticks"] * BATCH], on_match=on_match,
+                     on_tick=infos.append, batch_size=BATCH,
+                     min_batch=BATCH, max_batch=BATCH)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    matches = {q: Counter() for q in qids}
+    for q, bind, ets in rows:
+        matches[q].update(tuple(map(int, b)) + tuple(map(int, e))
+                          for b, e in zip(bind, ets))
+    lat = [i.latency_ms for i in infos]
+    return {"matches": matches, "local": list(svc.local),
+            "backend": svc.backend, "wall_s": wall,
+            **_lat_stats(job["svc_ticks"] * BATCH, lat),
+            "overflow": sum(i.n_overflow for i in infos),
+            "mesh_stats": svc.last_mesh_stats()}
+
+
+def _block_of(x, k: int, n: int):
+    if x.ndim == 0:
+        return x
+    c = x.shape[0] // n
+    return x[k * c:(k + 1) * c]
+
+
+def phase_ranks(torch, args, stream, cap, serve_matches):
+    """Both meshes over ``torch.distributed`` on the card, one process a
+    rank (``torch.multiprocessing``, start method "spawn"; the ranks load
+    the libraries the build phase made): the capacity phase's chain and
+    two-chain at 262,144 rows a table, C/n a rank — NCCL at world size 1,
+    gloo at 2 and 4 (ranks share the card; gloo stages a CUDA collective
+    through the host, so its times are not NCCL's) — each rank's final
+    state block k of the one-process mesh's at the same n, the union of
+    the ranks' matches the unsharded engines' tick by tick, overflow 0;
+    a crash on 4 ranks restored through ``FaultTolerantLoop``, the 4
+    ranks' checkpoint restored on 2; the replica service at R = 8 on 2
+    ranks against the serve phase's matches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    job = {"dir": tmp, "ticks": args.ticks, "svc_ticks": args.parity_ticks,
+           "ckpt": os.path.join(tmp, "ck"),
+           "stream": os.path.join(tmp, "stream.pkl"), "t0": 0.0}
+    with open(job["stream"], "wb") as f:      # the serve stream, as made
+        pickle.dump(stream, f)
+    want, finals = cap["want"], cap["finals"]
+    one_process = {r["n_shards"]: r for r in cap["runs"]}
+    runs = []
+    t_phase = time.perf_counter()
+    # every run's processes start together (imports, the card's context)
+    # and wait; each run begins when the one before it has ended
+    contexts = []
+    try:
+        for backend, world in RANKS_RUNS:
+            contexts.append(mp.start_processes(
+                _rank_main, args=(world, backend, {
+                    **job, "t0": time.perf_counter()}),
+                nprocs=world, join=False, start_method="spawn"))
+        for (backend, world), ctx in zip(RANKS_RUNS, contexts):
+            t0 = time.perf_counter()
+            open(os.path.join(tmp, f"go_{backend}{world}"), "w").close()
+            while not ctx.join():
+                pass
+            run_s = time.perf_counter() - t0
+            runs.append(_ranks_run(tmp, backend, world, run_s, want,
+                                   finals, one_process, args,
+                                   serve_matches))
+    finally:
+        for ctx in contexts:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+    service = next((r.pop("service") for r in runs if "service" in r), None)
+    launches = sum(r.pop("launches_all") for r in runs)
+    by_slots = sum((r.pop("by_slots_all") for r in runs), Counter())
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "ranks", "device": DEVICE,
+           "card": _card_line() if DEVICE == "cuda" else None,
+           "ticks": len(want),
+           "batch": BATCH, "capacity_total": CAPACITY_TOTAL,
+           "seconds": time.perf_counter() - t_phase, "runs": runs,
+           "service": service,
+           "note": "gloo stages CUDA tensors through host memory; its "
+                   "times are not NCCL's"}
+    emit(out)
+    if launches <= 0:
+        fail("ranks: no pair kernel launched")
+    return out, launches, dict(by_slots)
+
+
+def _ranks_run(tmp, backend, world, run_s, want, finals, one_process, args,
+               serve_matches) -> dict:
+    """Read one run's rank files and check them (see ``phase_ranks``)."""
+    import pickle
+
+    import numpy as np
+
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{backend}{world}_{r}.pkl"),
+                  "rb") as f:
+            ranks.append(pickle.load(f))
+    what = f"{backend} x {world}"
+    for k, rk in enumerate(ranks):
+        if rk["backend"] != backend:
+            fail(f"ranks: {what}: rank {k} ran {rk['backend']}")
+        if rk["launches_by_slots"] != {1: 6 * len(want)}:
+            fail(f"ranks: {what}: rank {k} pair launches "
+                 f"{rk['launches_by_slots']}, not 6 a tick at S = 1")
+        for i, (x, y) in enumerate(zip(finals[world], rk["final"])):
+            if not np.array_equal(_block_of(x, k, world), y):
+                fail(f"ranks: {what}: rank {k}'s final leaf {i} is not "
+                     f"block {k} of the one-process mesh's")
+    # per tick and engine: the union of the ranks' matches
+    for t, w in enumerate(want):
+        for e, (wn, wo, wm) in enumerate(w):
+            n_new = {rk["ticks"][t][e][0] for rk in ranks}
+            over = sum(rk["ticks"][t][e][1] for rk in ranks)
+            rows = sum((rk["ticks"][t][e][2] for rk in ranks), Counter())
+            if n_new != {wn} or over or wo or rows != wm:
+                fail(f"ranks: {what}: tick {t} engine {e}: matches "
+                     f"{n_new} ({sum(rows.values())} rows, overflow "
+                     f"{over}) vs the unsharded {wn}")
+    lat = ranks[0]["lat"]
+    run = {"backend": backend, "world": world,
+           "rows_a_rank": CAPACITY_TOTAL // world,
+           **_lat_stats(len(want) * BATCH, lat),
+           "one_process_mesh": {k: one_process[world][k] for k in (
+               "edges_per_s", "tick_ms_p50", "tick_ms_p99")},
+           "run_s": run_s,
+           "rank_ready_s": [rk["ready_s"] for rk in ranks],
+           "rank_seconds": [rk["seconds"] for rk in ranks],
+           "rank_setup_s": [rk["setup_s"] for rk in ranks],
+           "first_collective_ms": [rk["first_collective_ms"]
+                                   for rk in ranks],
+           "collective_calls_per_tick":
+               ranks[0]["collective_calls_per_tick"],
+           "collective_host_ms_per_tick": [
+               rk["collective_host_ms_per_tick"] for rk in ranks],
+           "collective_device_ms_per_tick": [
+               rk["collective_device"]["device_ms"] for rk in ranks],
+           "collective_device_by_name":
+               ranks[0]["collective_device"]["by_name"],
+           "fold_sizes": ranks[0]["fold"],
+           "pair_launches_a_rank": ranks[0]["launches"]}
+    if world == 4:
+        cr = [rk["crash_restore"] for rk in ranks]
+        if any(c["restarts"] != 1 or not c["identical"] for c in cr):
+            fail(f"ranks: {what}: crash + restore {cr}")
+        run["crash_restore"] = {
+            "crash_after_tick": CAPACITY_CRASH_TICK,
+            "ckpt_every": CAPACITY_CKPT_EVERY, "identical": True}
+    if world == 2:
+        for t, w in enumerate(want[RANKS_CKPT_TICK:]):
+            for e, (wn, _, wm) in enumerate(w):
+                rows = sum((rk["restored_ticks"][t][e][2]
+                            for rk in ranks), Counter())
+                if rows != wm or any(rk["restored_ticks"][t][e][1]
+                                     for rk in ranks):
+                    fail(f"ranks: the 4-rank checkpoint on 2 ranks: "
+                         f"tick {t + RANKS_CKPT_TICK} engine {e} "
+                         f"differs from the unsharded")
+        run["restored_4_on_2"] = {"after_tick": RANKS_CKPT_TICK,
+                                  "ticks": len(want) - RANKS_CKPT_TICK}
+        svcs = [rk["service"] for rk in ranks]
+        union = {}
+        for sv in svcs:
+            for q, c in sv["matches"].items():
+                union[q] = union.get(q, Counter()) + c
+        if union != {q: c for q, c in serve_matches.items()}:
+            fail("ranks: the replica service on 2 ranks reports other "
+                 "matches than the serve phase")
+        if any(sv["overflow"] for sv in svcs):
+            fail("ranks: the replica service overflowed")
+        run["service"] = {
+            "n_replicas": RANKS_SERVICE[0],
+            "slots_per_replica": RANKS_SERVICE[1], "world": world,
+            "backend": backend, "ticks": args.parity_ticks,
+            "matches_total": sum(sum(c.values()) for c in union.values()),
+            "held": [sv["local"] for sv in svcs],
+            **{k: svcs[0][k] for k in ("edges_per_s", "tick_ms_p50",
+                                       "tick_ms_p99", "wall_s")},
+            "mesh_stats_equal": all(sv["mesh_stats"] == svcs[0]["mesh_stats"]
+                                    for sv in svcs)}
+    run["launches_all"] = sum(rk["launches"] for rk in ranks)
+    run["by_slots_all"] = sum((Counter(rk["launches_by_slots"])
+                               for rk in ranks), Counter())
+    return run
 
 
 # --------------------------------------------------------------------- #
@@ -5438,7 +5860,7 @@ def main(argv=None) -> int:
     serve, qids, matches, snap, launches = phase_serve(torch, args, stream)
     phase_parity(torch, args, stream, qids, matches, snap)
     phase_profile(torch, args, stream)
-    del qids, matches, snap
+    del qids, snap
     _free(torch)
     _, session_launches, session_by_slots = phase_session(torch, args,
                                                           stream)
@@ -5449,8 +5871,12 @@ def main(argv=None) -> int:
     _, mesh_launches, mesh_by_slots, mesh_by_replicas = phase_mesh(
         torch, args, stream)
     _free(torch)
-    _, capacity_launches, capacity_by_slots = phase_capacity(torch, args,
-                                                             stream)
+    _, capacity_launches, capacity_by_slots, cap = phase_capacity(
+        torch, args, stream)
+    _free(torch)
+    _, ranks_launches, ranks_by_slots = phase_ranks(torch, args, stream,
+                                                    cap, matches)
+    del cap, matches
     _free(torch)
     _, sjtree_launches, sjtree_by_slots = phase_sjtree(torch, args, stream)
     del stream
@@ -5514,6 +5940,9 @@ def main(argv=None) -> int:
               launches_capacity=capacity_launches,
               launches_capacity_by_slots={
                   str(k): v for k, v in sorted(capacity_by_slots.items())},
+              launches_ranks=ranks_launches,
+              launches_ranks_by_slots={
+                  str(k): v for k, v in sorted(ranks_by_slots.items())},
               launches_sjtree=sjtree_launches,
               launches_sjtree_by_slots={
                   str(k): v for k, v in sorted(sjtree_by_slots.items())},

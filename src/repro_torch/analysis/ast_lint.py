@@ -62,7 +62,11 @@ TRC103 error    Host sync: ``.item()`` / ``.tolist()`` / ``.cpu()`` /
                 ``.nonzero()`` / ``torch.argwhere`` / one-argument
                 ``torch.where`` of a tick value (a result of data-
                 dependent size; ``core.join.first_true`` is the static-
-                size form).
+                size form), and the ``torch.distributed`` collectives of
+                host objects (``all_gather_object``, ``barrier``, ...).
+                The tensor collectives (``all_gather_into_tensor``,
+                ``all_reduce``) are device operations, as the
+                reference's ``lax.all_gather`` / ``lax.psum`` are.
 TRC104 error    Python control flow (``if`` / ``while`` / ternary /
                 ``assert``) on a tick value (``x is None`` checks are
                 exempt — identity, not value).
@@ -112,6 +116,10 @@ STATIC_PARAMS = frozenset({
     # kernel specialization constants
     "rel", "trel", "has_window", "tile_a", "tile_b", "tile_n", "tile_e",
     "batched", "acc_dtype", "axis_name", "axis_size", "in_batched",
+    # the capacity shards' collectives (engine.ShardAxis / GroupAxis) and
+    # the torch.distributed process group they run over: what the
+    # reference's ``axis_name`` names
+    "shards", "group",
     # model / training configs (hashable static pytrees)
     "cfg", "ocfg", "config", "mesh", "microbatches",
     # where a tick runs: one device (or mesh of devices) per built tick
@@ -134,6 +142,11 @@ _KILL_DOTTED = frozenset({"torch.is_tensor", "torch.device"})
 _CAST_CALLS = frozenset({"int", "float", "bool"})
 _SYNC_ATTRS = frozenset({"tolist", "item", "cpu", "numpy"})
 _NONZERO = frozenset({"torch.nonzero", "torch.argwhere"})
+# torch.distributed collectives of host objects: they pickle on the host,
+# or wait there
+_HOST_COLLECTIVES = frozenset(f"torch.distributed.{n}" for n in (
+    "all_gather_object", "broadcast_object_list", "gather_object",
+    "scatter_object_list", "barrier", "monitored_barrier"))
 _HOST_BUILDERS = frozenset({"torch.tensor", "torch.as_tensor",
                             "torch.from_numpy"})
 _FACTORIES = frozenset(f"torch.{n}" for n in (
@@ -943,6 +956,11 @@ class Linter:
             self._emit(mi, fi, node, "TRC103", ERROR,
                        "torch.cuda.synchronize() inside the tick (the "
                        "host waits for the device)")
+        elif d in _HOST_COLLECTIVES:
+            self._emit(mi, fi, node, "TRC103", ERROR,
+                       f"{d}() inside the tick (a collective of host "
+                       f"objects: the host waits; gather tensors with "
+                       f"all_gather_into_tensor)")
         elif d in _NONZERO and any_tainted:
             self._emit(mi, fi, node, "TRC103", ERROR,
                        f"{d}() of a tick value (a data-dependent size "

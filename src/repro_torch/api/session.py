@@ -41,7 +41,9 @@ The port of ``repro.api.session``.  A session runs on the card
 knobs) serves through the replica-sharded service
 (``repro_torch.runtime.mesh``); its replicas sit on ``devices=`` (one
 device per replica, repeats allowed), or all on ``device`` when that is
-given, or on every visible CUDA device.  ``serve_frontier`` takes one
+given, or on every visible CUDA device; ``group=`` (a ``torch.
+distributed`` process group) splits the replicas over its ranks, every
+rank running the session alike.  ``serve_frontier`` takes one
 keyword the reference's session does not pass through: ``pump_size``,
 the service's deliveries per source per round (the reference's session
 always uses the service's default of 64), so that a session can fill a
@@ -263,6 +265,7 @@ class StreamSession:
         *,
         device=None,
         devices=None,
+        group=None,
         _service: ContinuousSearchService | None = None,
     ):
         if _service is None:
@@ -289,11 +292,12 @@ class StreamSession:
                 mesh_kw = ({"n_replicas": mesh} if isinstance(mesh, int)
                            else dict(mesh))
                 _service = ShardedSearchService(**mesh_kw, devices=devices,
-                                                **common)
+                                                group=group, **common)
             else:
-                if devices is not None:
-                    raise ValueError("devices= places the replicas of a "
-                                     "mesh session; pass mesh= too")
+                if devices is not None or group is not None:
+                    raise ValueError("devices= and group= place the "
+                                     "replicas of a mesh session; pass "
+                                     "mesh= too")
                 _service = ContinuousSearchService(
                     slots_per_group=slots_per_group, **common)
         self.service = _service
@@ -626,7 +630,8 @@ class StreamSession:
     def restore(cls, ckpt_dir: str, step: int | None = None,
                 tick_cache=None, backend: str | None = None,
                 obs: MetricsRegistry | None = None, *,
-                device=None, devices=None) -> "StreamSession":
+                device=None, devices=None,
+                group=None) -> "StreamSession":
         """Rebuild a full session from the newest usable checkpoint:
         original qids, same label vocabulary, same pattern plans, zero
         recompiles for structures this process has already served.
@@ -636,15 +641,16 @@ class StreamSession:
         so ``status()`` health attribution survives the restore.  The
         state lands on ``device`` (``None``: the card).  A checkpoint of
         a mesh session comes back as a mesh session on the same number
-        of replicas, placed on ``devices`` (or all on ``device``).
+        of replicas, placed on ``devices`` (or all on ``device``), over
+        ``group`` when it is given (every rank calls this).
         """
         obs = obs if obs is not None else MetricsRegistry()
-        if devices is not None:
+        if devices is not None or group is not None:
             from repro_torch.runtime.mesh import ShardedSearchService
             svc = ShardedSearchService.restore(
                 ckpt_dir, step=step, tick_cache=tick_cache, backend=backend,
                 extract_matches=True, obs=obs, devices=devices,
-                device=device)
+                device=device, group=group)
         else:
             svc = ContinuousSearchService.restore(
                 ckpt_dir, step=step, tick_cache=tick_cache, backend=backend,

@@ -10,6 +10,7 @@ from repro_torch.checkpoint.ckpt import (
     latest_step,
     load_manifest,
     load_resolved_manifest,
+    mesh_save_kwargs,
     prune_checkpoints,
     reshard,
     restore_checkpoint,

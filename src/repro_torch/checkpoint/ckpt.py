@@ -46,6 +46,19 @@ generic restore cannot know the shard count that wrote an engine state
 (its ``parent`` pointers are shard-local): an engine state goes back at
 the same count, or through ``repro_torch.runtime.elastic.
 scale_to_mesh``.
+
+On a process-group mesh (``Mesh(group=...)``, one rank a device) and
+for the replica service over a group, every rank writes its own blocks
+in the sharded format above — ``step_<N>.shard<r>of<R>.npz``, replicated
+keys and scalars in shard 0, which rank 0 owns — and rank 0 writes the
+one manifest after the ranks have exchanged their shards' hashes; no
+rank gathers the whole state.  The publish keeps the commit order:
+manifest, a barrier, the shards after 0, a barrier, shard 0.  A restore
+onto a process-group mesh reads, on each rank, only the files that hold
+its rows, from either format: so a checkpoint written by n ranks
+restores onto m ranks and onto the one-process mesh, and a
+single-file checkpoint (the one-process mesh's, the reference's)
+restores onto ranks.
 """
 
 from __future__ import annotations
@@ -58,10 +71,11 @@ import threading
 import time
 import warnings
 import zipfile
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEP = "::"
 
@@ -190,21 +204,61 @@ def _write_npz_hashed(tmp_path: str, flat: dict) -> str:
     return hw.hexdigest()
 
 
+def _rank_of(group) -> tuple[int, int]:
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _spec_replicated(tree, mesh, specs) -> tuple:
+    """The keys of ``tree`` whose ``PartitionSpec`` leaves axis 0 whole
+    on ``mesh``; a split over fewer than every rank raises."""
+    by_key = dict(_walk(specs))
+    out = []
+    for key, x in _walk(tree):
+        n = by_key[key].shards(mesh, 0) if np.ndim(x) else 1
+        if n == 1:
+            out.append(key)
+        elif n != mesh.size:
+            raise ValueError(f"{key}: split {n} ways on a process group of "
+                             f"{mesh.size} ranks (a rank-written "
+                             "checkpoint splits over every rank)")
+    return tuple(out)
+
+
+def mesh_save_kwargs(tree, mesh, specs) -> dict:
+    """``save_checkpoint`` / ``AsyncCheckpointer.save`` keywords for
+    ``tree`` on ``mesh``: on a process-group mesh every rank writes its
+    block (``group``, ``n_shards`` the mesh's size, ``replicated`` the
+    keys ``specs`` leave whole); on a one-process mesh none."""
+    if mesh.group is None:
+        return {}
+    return {"group": mesh.group, "n_shards": mesh.size,
+            "replicated": _spec_replicated(tree, mesh, specs)}
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
-                    n_shards: int = 1, replicated: tuple = ()):
+                    n_shards: int = 1, replicated: tuple = (), *,
+                    group=None):
     """Publish checkpoint ``step`` atomically; returns the npz path (shard
     0's with ``n_shards > 1``).
 
-    With ``n_shards > 1`` every key whose top-level name is not in
-    ``replicated`` is split into ``n_shards`` contiguous axis-0 blocks,
-    one per ``step_N.shard<r>of<R>.npz``; replicated keys and scalars
-    are stored once, in shard 0, which is published last.
+    With ``n_shards > 1`` every key whose top-level name (or whole key)
+    is not in ``replicated`` is split into ``n_shards`` contiguous axis-0
+    blocks, one per ``step_N.shard<r>of<R>.npz``; replicated keys and
+    scalars are stored once, in shard 0, which is published last.
+
+    With ``group`` (a ``torch.distributed`` process group of W ranks)
+    ``tree`` is this rank's part: every split key holds the rank's
+    ``n_shards / W`` contiguous blocks, rank r's starting at block
+    ``r * n_shards / W``, and rank 0's tree holds the replicated keys.
+    Every rank calls it (it is collective) and writes only its own
+    files.  For a tree on a ``Mesh``, ``mesh_save_kwargs`` gives these
+    keywords.
     """
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     out, man_out = _paths(ckpt_dir, step)
     man_tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.json")
-    if n_shards <= 1:
+    if n_shards <= 1 and group is None:
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.npz")
         digest = _write_npz_hashed(tmp, flat)
         # the hash ties the manifest/npz PAIR together: a crash between
@@ -218,33 +272,59 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
         os.replace(tmp, out)               # ... npz last: the commit point
         return out
 
+    rank, world = (0, 1) if group is None else _rank_of(group)
+    if n_shards % world:
+        raise ValueError(f"n_shards={n_shards} is not divisible by the "
+                         f"group's {world} ranks")
+    n_local = n_shards // world
+    first = rank * n_local
     repl = set(replicated)
-    shard_flats: list[dict] = [{} for _ in range(n_shards)]
+    shard_flats: dict[int, dict] = {first + i: {} for i in range(n_local)}
     for key, arr in flat.items():
-        if key.split(SEP, 1)[0] in repl or arr.ndim == 0:
-            shard_flats[0][key] = arr
+        if key.split(SEP, 1)[0] in repl or key in repl or arr.ndim == 0:
+            if first == 0:
+                shard_flats[0][key] = arr
             continue
-        if arr.shape[0] % n_shards:
+        if arr.shape[0] % n_local:
             raise ValueError(
                 f"cannot shard {key!r}: axis-0 size {arr.shape[0]} not "
                 f"divisible by n_shards={n_shards}")
-        block = arr.shape[0] // n_shards
-        for r in range(n_shards):
-            shard_flats[r][key] = arr[r * block:(r + 1) * block]
-    tmps, digests = [], []
-    for r in range(n_shards):
-        tmp = os.path.join(ckpt_dir, f".tmp_step_{step}.shard{r}.npz")
-        digests.append(_write_npz_hashed(tmp, shard_flats[r]))
-        tmps.append(tmp)
-    manifest = {"step": step, "n_arrays": len(flat),
-                "shards": {"n": n_shards, "sha256": digests},
-                **(extra or {})}
-    with open(man_tmp, "w") as f:
-        json.dump(manifest, f)
-    os.replace(man_tmp, man_out)           # manifest first ...
-    for r in range(n_shards - 1, -1, -1):  # ... shard 0 last: commit point
-        os.replace(tmps[r], _shard_path(ckpt_dir, step, r, n_shards))
+        block = arr.shape[0] // n_local
+        for i in range(n_local):
+            shard_flats[first + i][key] = arr[i * block:(i + 1) * block]
+    tmps, digests = {}, {}
+    for r, fl in shard_flats.items():
+        tmps[r] = os.path.join(ckpt_dir, f".tmp_step_{step}.shard{r}.npz")
+        digests[r] = _write_npz_hashed(tmps[r], fl)
+    n_arrays = len(shard_flats.get(0, {}))
+    if group is not None:
+        parts = [None] * world
+        dist.all_gather_object(parts, (digests, n_arrays), group=group)
+        digests = {r: d for part, _ in parts for r, d in part.items()}
+        n_arrays = parts[0][1]
+    if rank == 0:
+        manifest = {"step": step, "n_arrays": n_arrays,
+                    "shards": {"n": n_shards,
+                               "sha256": [digests[r]
+                                          for r in range(n_shards)]},
+                    **(extra or {})}
+        with open(man_tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(man_tmp, man_out)       # manifest first ...
+    _barrier(group)
+    for r in sorted(tmps, reverse=True):   # ... shard 0 last: commit point
+        if r:
+            os.replace(tmps[r], _shard_path(ckpt_dir, step, r, n_shards))
+    _barrier(group)
+    if 0 in tmps:
+        os.replace(tmps[0], _shard_path(ckpt_dir, step, 0, n_shards))
+    _barrier(group)
     return _shard_path(ckpt_dir, step, 0, n_shards)
+
+
+def _barrier(group) -> None:
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def _delta_prev(manifest: dict) -> int | None:
@@ -471,29 +551,83 @@ def load_resolved_manifest(ckpt_dir: str, step: int, key: str) -> dict:
     return base
 
 
-def _load_sharded(ckpt_dir: str, step: int) -> dict:
-    """Reassemble a sharded checkpoint's arrays into one flat dict: keys
-    present in every shard concatenate along axis 0 in shard order,
-    shard-0-only keys are replicated values."""
-    files = _shard_files(ckpt_dir, step)
-    m = re.search(r"shard\d+of(\d+)\.npz", os.path.basename(files[0]))
-    n = int(m.group(1))
-    ds = []
-    for r in range(n):
-        path = _shard_path(ckpt_dir, step, r, n)
+class _Arrays:
+    """The global arrays of checkpoint ``step``, read lazily from its
+    single ``.npz`` or its shard files (a key present in shard 1 is split
+    along axis 0 in shard order; a shard-0-only key is replicated)."""
+
+    def __init__(self, ckpt_dir: str, step: int):
+        self.step = step
+        npz, _ = _paths(ckpt_dir, step)
+        self.where = npz
         try:
-            ds.append(np.load(path))
+            self.files = [np.load(npz)]
+            return
         except (OSError, zipfile.BadZipFile, ValueError, EOFError) as e:
+            shards = _shard_files(ckpt_dir, step)
+            if not shards:
+                raise CheckpointError(
+                    f"step {step}: unreadable {npz}: {e}") from e
+        m = re.search(r"shard\d+of(\d+)\.npz", os.path.basename(shards[0]))
+        n = int(m.group(1))
+        self.files = []
+        for r in range(n):
+            path = _shard_path(ckpt_dir, step, r, n)
+            try:
+                self.files.append(np.load(path))
+            except (OSError, zipfile.BadZipFile, ValueError, EOFError) as e:
+                raise CheckpointError(
+                    f"step {step}: unreadable shard {path}: {e}") from e
+        self.where = shards[0]
+
+    def _read(self, r: int, key: str) -> np.ndarray:
+        try:
+            return self.files[r][key]
+        except KeyError as e:
+            raise ValueError(
+                f"step {self.step}: array {key!r} missing from "
+                f"{self.where} (state schema drift?)") from e
+        except (zipfile.BadZipFile, OSError, ValueError, EOFError) as e:
             raise CheckpointError(
-                f"step {step}: unreadable shard {path}: {e}") from e
-    out: dict = {}
-    shard_keys = set(ds[1].files) if n > 1 else set()
-    for key in ds[0].files:
-        if key in shard_keys:
-            out[key] = np.concatenate([d[key] for d in ds], axis=0)
-        else:
-            out[key] = ds[0][key]           # replicated: stored once
-    return out
+                f"step {self.step}: unreadable array {key!r}: {e}") from e
+
+    def split(self, key: str) -> bool:
+        return len(self.files) > 1 and key in self.files[1].files
+
+    def whole(self, key: str) -> np.ndarray:
+        if not self.split(key):
+            return self._read(0, key)
+        return np.concatenate([self._read(r, key)
+                               for r in range(len(self.files))], axis=0)
+
+    def rows(self, key: str, lo: int, hi: int, total: int) -> np.ndarray:
+        """Global rows ``[lo, hi)`` of ``key``, whose axis 0 must be
+        ``total`` long; reads only the shard files that hold them."""
+        if not self.split(key):
+            arr = self._read(0, key)
+            if arr.shape[0] != total:
+                raise ValueError(f"shape mismatch for {key}: axis 0 of "
+                                 f"{arr.shape} vs {total}")
+            return arr[lo:hi]
+        first = self._read(0, key)
+        b = first.shape[0]
+        if b * len(self.files) != total:
+            raise ValueError(f"shape mismatch for {key}: {len(self.files)} "
+                             f"shards of {b} rows vs {total}")
+        parts = [first if r == 0 else self._read(r, key)
+                 for r in range(lo // b, -(-hi // b))]
+        off = (lo // b) * b
+        return np.concatenate(parts, axis=0)[lo - off:hi - off]
+
+
+def _place(arr: np.ndarray, like, device=None):
+    """``arr`` as ``like`` holds it: a tensor of its dtype on its device
+    (or ``device``), else a numpy array of its dtype."""
+    if torch.is_tensor(like):
+        return torch.as_tensor(arr).to(
+            device=like.device if device is None else device,
+            dtype=like.dtype)
+    return arr.astype(np.asarray(like).dtype)
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
@@ -506,45 +640,51 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree,
     a missing array or a shape mismatch raises ``ValueError``: the npz
     publishes atomically, so either means the caller's state schema
     drifted — a configuration error that must be loud.  A sharded step
-    is reassembled on the host (``_load_sharded``), whatever the number
-    of replicas that wrote it.
+    is reassembled on the host, whatever the number of replicas or
+    ranks that wrote it.
 
     With ``mesh`` and ``specs`` the restored tree goes through
     ``reshard``: every leaf a tensor on the mesh's device, in the
     reference's global shape.  That places an engine state back at the
     shard count it was written with; onto another count, pass it through
-    ``repro_torch.runtime.elastic.scale_to_mesh``.
+    ``repro_torch.runtime.elastic.scale_to_mesh``.  On a process-group
+    mesh ``like_tree`` is this rank's part (``build_sharded_tick``'s
+    state) and so is the result: each rank reads its own rows of every
+    split key, from the files that hold them.
     """
     if (mesh is None) != (specs is None):
         raise ValueError("restore_checkpoint needs both mesh= and specs=, "
                          "or neither")
-    npz, _ = _paths(ckpt_dir, step)
-    try:
-        data = np.load(npz)
-    except (OSError, zipfile.BadZipFile, ValueError, EOFError) as e:
-        if not _shard_files(ckpt_dir, step):
-            raise CheckpointError(
-                f"step {step}: unreadable {npz}: {e}") from e
-        data = _load_sharded(ckpt_dir, step)
+    data = _Arrays(ckpt_dir, step)
+    if mesh is not None and mesh.group is not None:
+        by_key = dict(_walk(specs))
+
+        def rank_leaf(key, like):
+            n = by_key[key].shards(mesh, 0) if like.ndim else 1
+            shape = tuple(like.shape)
+            if n == 1:
+                arr = data.whole(key)
+                if arr.shape != shape:
+                    raise ValueError(f"shape mismatch for {key}: "
+                                     f"{arr.shape} vs {shape}")
+            else:
+                c = shape[0]
+                arr = data.rows(key, mesh.rank * c, (mesh.rank + 1) * c,
+                                c * n)
+                if arr.shape[1:] != shape[1:]:
+                    raise ValueError(f"shape mismatch for {key}: "
+                                     f"{arr.shape} vs {shape}")
+            return _place(arr, like, mesh.device)
+
+        return _unflatten(like_tree, rank_leaf)
 
     def leaf(key, like):
-        try:
-            arr = data[key]
-        except KeyError as e:
-            raise ValueError(
-                f"step {step}: array {key!r} missing from {npz} "
-                "(state schema drift?)") from e
-        except (zipfile.BadZipFile, OSError, ValueError, EOFError) as e:
-            raise CheckpointError(
-                f"step {step}: unreadable array {key!r}: {e}") from e
+        arr = data.whole(key)
         shape = tuple(like.shape)
         if arr.shape != shape:
             raise ValueError(f"shape mismatch for {key}: "
                              f"{arr.shape} vs {shape}")
-        if torch.is_tensor(like):
-            return torch.as_tensor(arr).to(device=like.device,
-                                           dtype=like.dtype)
-        return arr.astype(np.asarray(like).dtype)
+        return _place(arr, like)
 
     tree = _unflatten(like_tree, leaf)
     return tree if mesh is None else reshard(tree, mesh, specs)
@@ -555,7 +695,9 @@ def reshard(tree, mesh, specs):
     ``specs`` (the same structure): every leaf becomes a tensor of its
     dtype on the mesh's device, in its global shape.  An axis that a
     spec splits over mesh axes must divide by their product
-    (``ValueError`` otherwise)."""
+    (``ValueError`` otherwise).  On a process-group mesh ``tree`` is
+    global (on the host or any device) and each rank keeps its block of
+    every split axis 0: rows ``[r*C/n, (r+1)*C/n)``."""
     by_key = dict(_walk(specs))
 
     def leaf(key, x):
@@ -570,6 +712,13 @@ def reshard(tree, mesh, specs):
                 raise ValueError(
                     f"{key}: axis {dim} of {tuple(x.shape)} is not "
                     f"divisible by {n} shards ({spec})")
+        if mesh.group is not None and x.dim() and spec.shards(mesh, 0) > 1:
+            n = spec.shards(mesh, 0)
+            if n != mesh.size:
+                raise ValueError(f"{key}: split {n} ways on a process "
+                                 f"group of {mesh.size} ranks")
+            c = x.shape[0] // n
+            x = x[mesh.rank * c:(mesh.rank + 1) * c]
         return x.to(mesh.device)
 
     return _unflatten(tree, leaf)
@@ -592,23 +741,37 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, extra: dict | None = None,
              keep_last: int | None = None, n_shards: int = 1,
-             replicated: tuple = ()):
+             replicated: tuple = (), *, group=None):
         """Snapshot ``tree`` to host memory now, write it on the writer
         thread.  With ``keep_last``, older checkpoints are pruned on the
         writer thread after the new step publishes.  ``n_shards`` /
         ``replicated`` pass through to ``save_checkpoint`` (per-replica
-        shard files for the mesh service)."""
+        shard files for the mesh service).
+
+        With ``group`` (``tree`` this rank's part, see
+        ``save_checkpoint``) the save is written and published here, in
+        the caller's thread: its hash exchange and barriers are
+        collectives, which every rank must issue in one order with the
+        rest of its collectives (a tick's among them).  Rank 0 prunes.
+        Returns a finished future."""
         host = _flatten(tree)              # synchronous owned snapshot
 
         def _write():
             t0 = time.perf_counter()
             out = save_checkpoint(self.ckpt_dir, step, host, extra,
-                                  n_shards=n_shards, replicated=replicated)
-            if keep_last is not None:
+                                  n_shards=n_shards, replicated=replicated,
+                                  group=group)
+            if keep_last is not None and (group is None
+                                          or _rank_of(group)[0] == 0):
                 prune_checkpoints(self.ckpt_dir, keep_last)
             self.last_write_s = time.perf_counter() - t0
             return out
 
+        if group is not None:
+            self.wait()
+            fut = Future()
+            fut.set_result(_write())
+            return fut
         fut = self._pool.submit(_write)
         with self._lock:
             self._pending.append(fut)

@@ -11,17 +11,24 @@ shard-local by construction: level-0 appends are dealt round robin and a
 row lands on its parent's shard, so ``parent`` pointers are shard-local
 indices.
 
-One controller: the mesh is an array of torch devices with named axes,
-and every entry is the same device — n logical shards on one card, or on
-the CPU in the tests (the counterpart of the reference's forced host
-device count).  The state keeps the reference's global shapes: every
-table leaf is ``[C, ...]`` on the mesh's device, shard k's rows at
-``[k*C/n, (k+1)*C/n)``, and every scalar is ``[]`` — what
+Two meshes.  A one-process mesh is an array of torch devices with named
+axes whose entries are all the same device: n logical shards on one
+card, or on the CPU in the tests (the counterpart of the reference's
+forced host device count).  Its state keeps the reference's global
+shapes: every table leaf is ``[C, ...]`` on the mesh's device, shard k's
+rows at ``[k*C/n, (k+1)*C/n)``, and every scalar is ``[]`` — what
 ``jax.device_get`` of the reference's sharded state gives.  The tick
 views each leaf as ``[n, C/n, ...]`` and runs the tick body once over
-the shard axis, so n shards cost one body's host dispatch, not n.  A
-mesh of distinct devices raises ``NotImplementedError``: nothing here
-has run on more than one card.
+the shard axis, so n shards cost one body's host dispatch, not n.
+
+A process-group mesh (``group=``, PyTorch's one process per device) has
+one rank per entry: rank r runs on ``devices[r]`` and holds only shard
+r — every table leaf ``[C/n, ...]``, bit for bit rows ``[r*C/n,
+(r+1)*C/n)`` of the global state the one-process mesh holds — and the
+reference's collectives are the group's (``engine.GroupAxis``).  Entries
+may repeat, for ranks that share a card.  A one-process mesh of distinct
+devices raises ``NotImplementedError``: a distinct device is another
+process's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.engine import build_tick, current_matches
 from repro_torch.core.plan import ExecutionPlan
@@ -40,9 +48,9 @@ from repro_torch.core.state import (
     resolve_device,
 )
 
-_DISTINCT = ("a mesh of distinct devices is not supported yet: every entry "
-             "must be the same device (n logical shards on one card); "
-             "distinct cards are ROADMAP Queue A item 4c")
+_DISTINCT = ("a one-process mesh names one device (n logical shards on "
+             "it); for distinct devices run one process a device and pass "
+             "the torch.distributed group as group=")
 
 
 class PartitionSpec:
@@ -78,10 +86,19 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 class Mesh:
     """An array of torch devices with named axes: ``devices`` (numpy
     object array of ``torch.device``), ``axis_names``, ``shape`` (axis
-    name -> size, in axis order, as ``jax.sharding.Mesh.shape``) and
-    ``device`` (the one device every entry names)."""
+    name -> size, in axis order, as ``jax.sharding.Mesh.shape``),
+    ``device`` (the device this process runs on), ``group`` and
+    ``rank``.
 
-    def __init__(self, devices, axis_names):
+    ``group`` None is the one-process mesh: every entry the same device.
+    A ``torch.distributed`` process group (or ``torch.distributed.
+    group.WORLD``) is a process-group mesh: its size is the mesh's,
+    ``rank`` is this process's rank in it and ``device`` its entry.  On
+    a process outside the group ``rank`` and ``device`` are None: it
+    holds nothing of the mesh's state (``runtime.elastic.scale_to_mesh``
+    onto a subgroup)."""
+
+    def __init__(self, devices, axis_names, *, group=None):
         devs = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if devs.ndim != len(names):
@@ -89,19 +106,38 @@ class Mesh:
         flat = [torch.device(d) for d in devs.reshape(-1)]
         if not flat:
             raise ValueError("a mesh needs at least one device")
-        if any(not _same_device(d, flat[0]) for d in flat):
-            raise NotImplementedError(_DISTINCT)
+        self.group = group
+        self.rank = None
+        if group is None:
+            if any(not _same_device(d, flat[0]) for d in flat):
+                raise NotImplementedError(_DISTINCT)
+            self.device = flat[0]
+        else:
+            rank = dist.get_rank(group)
+            if rank >= 0:
+                size = dist.get_world_size(group)
+                if size != len(flat):
+                    raise ValueError(f"a mesh of {len(flat)} devices over a "
+                                     f"group of {size} ranks")
+                self.rank = rank
+            self.device = None if self.rank is None else flat[self.rank]
         self.devices = np.empty(devs.shape, dtype=object)
         self.devices.reshape(-1)[:] = flat
         self.axis_names = names
         self.shape = dict(zip(names, devs.shape))
-        self.device = flat[0]
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
 
 
-def make_mesh(shape, axis_names, *, devices=None) -> Mesh:
+def make_mesh(shape, axis_names, *, devices=None, group=None) -> Mesh:
     """A ``Mesh`` of ``shape`` over ``axis_names``.  ``devices`` lists
     exactly ``prod(shape)`` entries (a device may repeat: n logical
-    shards on one device); None means the card, repeated."""
+    shards on one device, or ranks that share one); None means the card,
+    repeated.  ``group`` (a ``torch.distributed`` process group of
+    ``prod(shape)`` ranks) makes a process-group mesh, rank r on
+    ``devices[r]``; see ``Mesh``."""
     shape = tuple(int(s) for s in shape)
     size = math.prod(shape)
     if devices is None:
@@ -112,7 +148,7 @@ def make_mesh(shape, axis_names, *, devices=None) -> Mesh:
                          f"{len(devices)}")
     arr = np.empty(size, dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(shape), axis_names)
+    return Mesh(arr.reshape(shape), axis_names, group=group)
 
 
 def _axes(axes) -> tuple:
@@ -138,16 +174,28 @@ def build_sharded_tick(
     product of ``mesh``'s ``axes`` (e.g. ``("pod", "data")``), and
     ``state`` the empty tables on the mesh's device.
 
-    ``state`` and the result keep the reference's global shapes (see
-    ``repro_torch.core.engine.build_tick``).  ``backend`` None is the
-    device's default: the CUDA pair kernel on a card (over the shard
-    axis, S = n), REF on the CPU.  With ``prefix_depth > 0`` the tick
-    takes a shared-prefix ``NodeView`` (``repro_torch.core.share``) as a
-    third argument, replicated to every shard; the forest node advances
-    once, outside the tick.
+    On a one-process mesh ``state`` and the result keep the reference's
+    global shapes (see ``repro_torch.core.engine.build_tick``).  On a
+    process-group mesh they are this rank's: every table leaf ``[C/n,
+    ...]`` on the rank's device, the rank's match rows, and the
+    ``TickResult`` scalars summed over the group; the axes must span
+    every rank.  ``backend`` None is the device's default: the CUDA pair
+    kernel on a card (over the shard axis, S = n, or S = 1 a rank), REF
+    on the CPU.  With ``prefix_depth > 0`` the tick takes a
+    shared-prefix ``NodeView`` (``repro_torch.core.share``) as a third
+    argument, replicated to every shard; the forest node advances once
+    (on every rank), outside the tick.
     """
     axes = _axes(axes)
     n_shards = math.prod(mesh.shape[a] for a in axes)
+    if mesh.group is not None:
+        if n_shards != mesh.size:
+            raise ValueError(f"axes {axes} split {n_shards} ways over a "
+                             f"process group of {mesh.size} ranks: the "
+                             "capacity axis must span every rank")
+        if mesh.rank is None:
+            raise ValueError("this process is not a rank of the mesh's "
+                             "group")
     tick = build_tick(
         plan,
         backend=backend,
@@ -156,17 +204,27 @@ def build_sharded_tick(
         n_shards=n_shards,
         prefix_depth=prefix_depth,
         device=mesh.device,
+        group=mesh.group,
     )
-    return tick, init_state(plan, prefix_depth, device=mesh.device)
+    rank_shards = 1 if mesh.group is None else n_shards
+    return tick, init_state(plan, prefix_depth, device=mesh.device,
+                            n_shards=rank_shards)
 
 
 def _sharded_current_matches(plan: ExecutionPlan, state: EngineState,
-                             n_shards: int):
+                             n_shards: int, *, group=None):
     """``current_matches`` of a capacity-sharded state: each shard's
     ``C/n`` block is folded on its own, since its ``parent`` pointers
     are shard-local (reading them through the concatenated arrays
     misreads every shard after the first).  L0 rows are denormalized, so
-    their blocks fold the same either way."""
+    their blocks fold the same either way.  With ``group`` ``state`` is
+    this rank's shard: each rank folds its own, and the union is
+    gathered to every rank (a collective: every rank calls it)."""
+    if group is not None:
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, current_matches(plan, state),
+                               group=group)
+        return set().union(*parts)
     out = set()
     for k in range(n_shards):
         def block(x, k=k):

@@ -34,14 +34,18 @@ CUDA kernel) and the gathers index it directly, so it is never copied
 per slot.
 
 Capacity sharding (``axis_name`` set, ``n_shards`` = n): every table's
-capacity axis is split into n shards, and the body runs with the shard
-axis as its slot axis (S = n; ``repro_torch.core.distributed`` views a
-global ``[C, ...]`` leaf as ``[n, C/n, ...]``).  The reference's
-``shard_map`` collectives become tensor operations over that axis:
-``axis_index`` is ``arange(n)``, a tiled ``all_gather`` of the per-shard
-``[n, d, ...]`` deltas is a reshape to ``[n*d, ...]`` that the join
-takes as a shared operand, and ``psum`` is a sum over the shard axis,
-broadcast back.  The design rules are the reference's: level-0 appends
+capacity axis is split into n shards, and the body's collectives come
+from one object built with the tick.  ``ShardAxis`` (one process) runs
+the shard axis as the slot axis (S = n; ``repro_torch.core.distributed``
+views a global ``[C, ...]`` leaf as ``[n, C/n, ...]``), and the
+reference's ``shard_map`` collectives become tensor operations over
+it: ``axis_index`` is ``arange(n)``, a tiled ``all_gather`` of the
+per-shard ``[n, d, ...]`` deltas is a reshape to ``[n*d, ...]`` that the
+join takes as a shared operand, and ``psum`` is a sum over the shard
+axis, broadcast back.  ``GroupAxis`` (a ``torch.distributed`` process
+group, one shard a rank) runs the body at S = 1 over the rank's shard,
+and the collectives are the group's: the rank, ``all_gather_into_tensor``
+and ``all_reduce``.  The design rules are the reference's: level-0 appends
 are dealt round robin by batch position, a level-j row lands on its
 parent's shard (so ``parent`` pointers are shard-local), and pairs
 computed on replicated inputs (a shared prefix view) are partitioned by
@@ -56,6 +60,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import join as J
 from repro_torch.core.plan import ExecutionPlan
@@ -190,25 +195,82 @@ def _compact(view: _View, mask, size: int):
     )
 
 
-def _own_rows(n_shards: int, n: int, device) -> torch.Tensor:
-    """Round-robin shard ownership over a row or pair index: bool
-    [n_shards, n], row k true where ``index % n_shards == k`` (the
-    reference's ``arange(n) % n_shards == axis_index``)."""
-    idx = torch.arange(n, device=device)
-    return (idx % n_shards)[None, :] == torch.arange(
-        n_shards, device=device)[:, None]
+class ShardAxis:
+    """The capacity shards of one process: the body's slot axis is the
+    shard axis (S = n), and the reference's ``shard_map`` collectives are
+    tensor operations over it.  The same device operations as a tick of
+    n slots, and nothing crosses a process."""
+
+    def __init__(self, n_shards: int):
+        self.n_shards = n_shards
+        self.n_slots = n_shards
+
+    def own_rows(self, n: int, device) -> torch.Tensor:
+        """Round-robin shard ownership over a row or pair index: bool
+        [n_shards, n], row k true where ``index % n_shards == k`` (the
+        reference's ``arange(n) % n_shards == axis_index``)."""
+        idx = torch.arange(n, device=device)
+        return (idx % self.n_shards)[None, :] == torch.arange(
+            self.n_shards, device=device)[:, None]
+
+    def all_gather(self, view: _View) -> _View:
+        """The tiled all-gather of per-shard rows ``[n, d, ...]``: one
+        shared ``[n*d, ...]`` view, shard 0's rows first."""
+        return _View(*(x.reshape(-1, *x.shape[2:]) for x in view[:4]),
+                     shared=True)
+
+    def psums(self, *xs: torch.Tensor) -> tuple:
+        """Each ``[n]`` value summed over the shard axis, broadcast back
+        to every shard."""
+        return tuple(x.sum(dim=0, dtype=x.dtype).expand(x.shape[0])
+                     for x in xs)
 
 
-def _all_gather(view: _View) -> _View:
-    """The tiled all-gather of per-shard rows ``[n, d, ...]``: one shared
-    ``[n*d, ...]`` view, shard 0's rows first."""
-    return _View(*(x.reshape(-1, *x.shape[2:]) for x in view[:4]),
-                 shared=True)
+class GroupAxis:
+    """The capacity shards of a ``torch.distributed`` group, one shard a
+    rank: the body runs at S = 1 over the rank's ``C/n`` rows, and the
+    reference's collectives are the group's.  ``axis_index`` is the
+    rank; the tiled ``all_gather`` of a compacted delta is ONE
+    ``all_gather_into_tensor`` of its four leaves packed as int32
+    columns (every rank's block has the reference's static shape
+    ``[d, ...]``); a tick's ``psum``s are ONE ``all_reduce`` of the
+    packed scalars.  The group's backend moves the tensors where they
+    lie: the caller picks it."""
 
+    def __init__(self, group, n_shards: int):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        size = dist.get_world_size(group)
+        if size != n_shards:
+            raise ValueError(f"a group of {size} ranks for "
+                             f"n_shards={n_shards}")
+        self.n_shards = n_shards
+        self.n_slots = 1
 
-def _psum(x: torch.Tensor) -> torch.Tensor:
-    """The shard axis' sum, broadcast back to every shard."""
-    return x.sum(dim=0, dtype=x.dtype).expand(x.shape[0])
+    def own_rows(self, n: int, device) -> torch.Tensor:
+        """bool [1, n]: ``index % n_shards == rank``."""
+        idx = torch.arange(n, device=device)
+        return ((idx % self.n_shards) == self.rank)[None, :]
+
+    def all_gather(self, view: _View) -> _View:
+        """``[1, d, ...]`` per rank -> one shared ``[n*d, ...]`` view,
+        rank 0's rows first."""
+        bind, ets, valid, fresh = (x[0] for x in view[:4])
+        nv, ne = bind.shape[1], ets.shape[1]
+        packed = torch.cat([bind, ets, valid[:, None].to(I32),
+                            fresh[:, None].to(I32)], dim=1)
+        out = packed.new_empty((self.n_shards * packed.shape[0],
+                                packed.shape[1]))
+        dist.all_gather_into_tensor(out, packed, group=self.group)
+        return _View(out[:, :nv], out[:, nv:nv + ne],
+                     out[:, nv + ne].bool(), out[:, nv + ne + 1].bool(),
+                     shared=True)
+
+    def psums(self, *xs: torch.Tensor) -> tuple:
+        """Each ``[1]`` value summed over the group's ranks."""
+        packed = torch.cat(xs)
+        dist.all_reduce(packed, group=self.group)
+        return tuple(packed[i:i + 1] for i in range(len(xs)))
 
 
 def edge_match_mask(batch: EdgeBatch, esl, edl, eel, *,
@@ -240,6 +302,8 @@ def build_tick_body(
     axis_name: str | None = None,
     n_shards: int = 1,
     prefix_depth: int = 0,
+    *,
+    shards: ShardAxis | GroupAxis | None = None,
 ):
     """Compile the *structural* part of ``plan`` into a tick body.
 
@@ -275,11 +339,18 @@ def build_tick_body(
     returns the same scalars.  Without ``axis_name`` ``n_shards`` is
     ignored, as in the reference.  A table capacity that ``n_shards``
     does not divide raises ``ValueError``.
+
+    ``shards`` carries the collectives: ``ShardAxis(n_shards)`` (the
+    default) runs the n shards as the slot axis of one body;
+    ``GroupAxis(group, n_shards)`` runs this rank's shard at S = 1 and
+    the collectives over the group.
     """
     sharded = axis_name is not None
     if sharded:
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if shards is None:
+            shards = ShardAxis(n_shards)
         caps = [lv.capacity for si, sq in enumerate(plan.subqueries)
                 for lv in sq.levels[(prefix_depth if si == 0 else 0):]]
         caps += [js.capacity for js in plan.l0_joins]
@@ -394,10 +465,10 @@ def build_tick_body(
         bets = batch.ts[:, None]                            # [B, 1] shared
         n_b = batch.src.shape[0]
         if sharded:
-            if n_slots != n_shards:
+            if n_slots != shards.n_slots:
                 raise ValueError(f"a state of {n_slots} shards for "
-                                 f"n_shards={n_shards}")
-            own1 = _own_rows(n_shards, n_b, dev)    # level-0 round robin
+                                 f"{shards.n_slots} shard slots")
+            own1 = shards.own_rows(n_b, dev)        # level-0 round robin
 
         # -- 2. subquery phase: level-ordered batched inserts ---------- #
         recons: list[list[_View]] = []
@@ -434,7 +505,7 @@ def build_tick_body(
                         # the left side is the replicated prefix view:
                         # every shard computed the same pairs; partition
                         # them so that each lands exactly once
-                        pv = pv & _own_rows(n_shards, pv.shape[1], dev)
+                        pv = pv & shards.own_rows(pv.shape[1], dev)
                         n_overflow_repl += nd1
                     else:
                         n_overflow += nd1
@@ -487,7 +558,7 @@ def build_tick_body(
             else:
                 n_overflow += nd0
             if sharded and not a_repl:
-                da = _all_gather(da)
+                da = shards.all_gather(da)
             a1, b1, pv1, nd1 = J.join_pairs(
                 da.bind, da.ets, da.valid,
                 b_view.bind, b_view.ets, b_view.valid,
@@ -504,7 +575,7 @@ def build_tick_body(
             # J2: A_old ⋈ ΔB
             db, _, nd3 = _compact(b_view, b_view.fresh & b_view.valid, d)
             if sharded:
-                db = _all_gather(db)
+                db = shards.all_gather(db)
             a2, b2, pv2, nd4 = J.join_pairs(
                 a_view.bind, a_view.ets, a_view.valid & ~a_view.fresh,
                 db.bind, db.ets, db.valid,
@@ -512,7 +583,7 @@ def build_tick_body(
             if sharded and a_repl:
                 # replicated A x gathered (replicated) ΔB: the same pairs
                 # on every shard; partition them before appending
-                pv2 = pv2 & _own_rows(n_shards, pv2.shape[1], dev)
+                pv2 = pv2 & shards.own_rows(pv2.shape[1], dev)
                 n_overflow_repl += nd4
             else:
                 n_overflow += nd4
@@ -539,11 +610,8 @@ def build_tick_body(
         if sharded and a_repl:
             # a fully prefixed chain query: the final view is replicated;
             # partition emission so that each match is reported once
-            new_mask = new_mask & _own_rows(n_shards, new_mask.shape[-1],
-                                            dev)
+            new_mask = new_mask & shards.own_rows(new_mask.shape[-1], dev)
         n_new = new_mask.sum(dim=-1, dtype=I32).expand(n_slots)
-        if sharded:
-            n_new = _psum(n_new)
         if extract_matches:
             out, _, nd = _compact(final, new_mask, max_out)
             mb, me, mv = out.bind, out.ets, out.valid
@@ -568,9 +636,10 @@ def build_tick_body(
             prefix_view.valid_after if prefix_depth else None)
 
         if sharded:
-            n_overflow = _psum(n_overflow) + _psum(n_overflow_repl) \
-                // n_shards
-            n_discard = _psum(n_discard) // n_shards
+            n_new, n_overflow, n_overflow_repl, n_discard = shards.psums(
+                n_new, n_overflow, n_overflow_repl, n_discard)
+            n_overflow = n_overflow + n_overflow_repl // n_shards
+            n_discard = n_discard // n_shards
         else:
             n_overflow = n_overflow + n_overflow_repl
 
@@ -599,6 +668,7 @@ def build_tick(
     prefix_depth: int = 0,
     *,
     device=None,
+    group=None,
 ):
     """Compile ``plan`` into ``tick(state, batch, watermark=None) ->
     (state, res)`` for one query (the body at S = 1); with
@@ -619,9 +689,24 @@ def build_tick(
     scalars summed over the shards.  The tick views each leaf as
     ``[n, C/n, ...]`` and runs the body over the shard axis, so the n
     shards cost one body, not n.
+
+    With ``group`` as well (a ``torch.distributed`` process group of
+    ``n_shards`` ranks) the tick is this rank's: ``state`` is the rank's
+    shard — every table leaf ``[C/n, ...]``, rows ``[r*C/n, (r+1)*C/n)``
+    of the global state — and the result holds the rank's match rows
+    ``[max_out, ...]``; the scalars are summed over the group, equal on
+    every rank.  Every rank calls the tick on every batch, in the same
+    order.
     """
     device = resolve_device(device)
     backend = J.resolve_backend(backend, device)
+    shards = None
+    if axis_name is not None:
+        shards = (ShardAxis(n_shards) if group is None
+                  else GroupAxis(group, n_shards))
+    elif group is not None:
+        raise ValueError("group= shards the capacity axis: pass axis_name "
+                         "and n_shards too")
     body = build_tick_body(
         plan,
         backend=backend,
@@ -630,6 +715,7 @@ def build_tick(
         axis_name=axis_name,
         n_shards=n_shards,
         prefix_depth=prefix_depth,
+        shards=shards,
     )
 
     def lab(x):
@@ -639,7 +725,7 @@ def build_tick(
                      lab(plan.edge_edge_label))
     window = torch.tensor([plan.window], dtype=I32, device=device)
 
-    n = n_shards if axis_name is not None else 1
+    n = 1 if shards is None else shards.n_slots
 
     def to_shards(x):
         return x.reshape(n, x.shape[0] // n, *x.shape[1:]) if x.dim() \

@@ -375,25 +375,27 @@ class SlotTickCache:
         max_out: int | None = None,
         *,
         prefix_depth: int = 0,
+        group=None,
     ):
         """Built mesh slot tick (``repro_torch.runtime.mesh``): the slot
         axis split into ``len(mesh)`` replica blocks of
         ``slots_per_replica`` slots, block ``r`` on ``mesh[r]``.  Keyed by
-        structure plus the mesh's device tuple and the block height, so
-        a service restored onto the same mesh re-arms with cache hits
+        structure plus the mesh's device tuple, the block height and the
+        process group (``group``: ``mesh`` is this rank's replicas), so a
+        service restored onto the same mesh re-arms with cache hits
         (zero builds)."""
         from repro_torch.core.registry import plan_signature
         from repro_torch.runtime.mesh import build_mesh_slot_tick
 
         key = ("mesh", plan_signature(template_plan),
                tuple(str(d) for d in mesh), slots_per_replica, backend,
-               extract_matches, max_out, prefix_depth)
+               extract_matches, max_out, prefix_depth, group)
         return self._get(
             key,
             lambda: build_mesh_slot_tick(
                 template_plan, mesh, backend=backend,
                 extract_matches=extract_matches, max_out=max_out,
-                prefix_depth=prefix_depth))
+                prefix_depth=prefix_depth, group=group))
 
     def get_node(self, spec, backend: str = J.JoinBackend.REF):
         """Built prefix-node tick for one structural ``NodeSpec``

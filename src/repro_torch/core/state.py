@@ -102,7 +102,7 @@ def _empty_l0(capacity: int, nv: int, ne: int, device) -> L0Table:
 
 def init_state(plan: ExecutionPlan, prefix_depth: int = 0,
                watermark: int | None = None, *,
-               device=None) -> EngineState:
+               device=None, n_shards: int = 1) -> EngineState:
     """Empty tables for ``plan`` on ``device`` (``None``: the card).
 
     With ``prefix_depth > 0`` (cross-tenant prefix sharing,
@@ -113,16 +113,28 @@ def init_state(plan: ExecutionPlan, prefix_depth: int = 0,
     ``watermark`` seeds the engine clock ``t_now``: a tenant registered
     mid-stream under event-time serving starts at the already-released
     floor instead of 0.
+
+    ``n_shards > 1`` gives one rank's shard of a capacity-sharded state
+    (``repro_torch.core.distributed`` over a process group): every table
+    ``C/n_shards`` rows, the scalars as they are.  Every rank's empty
+    shard is the same.
     """
     device = resolve_device(device)
+
+    def cap(c):
+        if c % n_shards:
+            raise ValueError(f"table capacity {c} is not divisible by "
+                             f"n_shards={n_shards}")
+        return c // n_shards
+
     levels = tuple(
-        tuple(_empty_level(lv.capacity, device)
+        tuple(_empty_level(cap(lv.capacity), device)
               for lv in s.levels[(prefix_depth if si == 0 else 0):])
         for si, s in enumerate(plan.subqueries)
     )
     l0 = tuple(
-        _empty_l0(js.capacity, len(js.vertex_layout), len(js.edge_layout),
-                  device)
+        _empty_l0(cap(js.capacity), len(js.vertex_layout),
+                  len(js.edge_layout), device)
         for js in plan.l0_joins
     )
 

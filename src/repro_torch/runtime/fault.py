@@ -16,7 +16,11 @@ Delays are deterministic given an ``rng`` (jitter draws from it), and
 
 With ``mesh``/``specs`` a restore places the state onto that mesh
 (``restore_checkpoint(..., mesh, specs)``): a capacity-sharded engine
-state comes back at the shard count it was written with.
+state comes back at the shard count it was written with.  On a
+process-group mesh every rank runs the loop: each writes its own block,
+in step with the others (the save is collective), every rank fails at
+the same step and all restore from one checkpoint step, which they
+check they agree on.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ import time
 from typing import Callable
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (
     AsyncCheckpointer,
     CheckpointError,
     checkpoint_steps,
+    mesh_save_kwargs,
     restore_checkpoint,
     validate_checkpoint,
 )
@@ -130,8 +136,24 @@ class FaultTolerantLoop:
                 log.warning("skipping torn checkpoint step %d: %s", step, e)
                 continue
             log.info("restored checkpoint at step %d", step)
-            return restored, step
-        return state, 0
+            return restored, self._agreed(step)
+        return state, self._agreed(0)
+
+    def _agreed(self, step: int) -> int:
+        """The restore step, which every rank of a process-group mesh
+        must have chosen alike."""
+        group = None if self.mesh is None else self.mesh.group
+        if group is None:
+            return step
+        steps = [None] * dist.get_world_size(group)
+        dist.all_gather_object(steps, step, group=group)
+        if len(set(steps)) != 1:
+            raise RuntimeError(f"the ranks restore different steps: {steps}")
+        return step
+
+    def _save_kwargs(self, state) -> dict:
+        return {} if self.mesh is None else mesh_save_kwargs(
+            state, self.mesh, self.specs)
 
     def run(self, n_steps: int):
         while True:
@@ -141,7 +163,8 @@ class FaultTolerantLoop:
                     state = self.step_fn(state, i)
                     done = i + 1
                     if done % self.ckpt_every == 0 or done == n_steps:
-                        self.ckpt.save(done, state)
+                        self.ckpt.save(done, state, **self._save_kwargs(
+                            state))
                 self.ckpt.wait()
                 return state
             except SimulatedFailure as e:

@@ -28,8 +28,20 @@ and splits the slot axis over a mesh of replicas:
   and tenant count); the slot search inside the chosen replica's block
   is ``_Group.free_slot(lo, hi)``.
 
-There is one controller: this object drives every replica, and nothing
-here uses ``torch.distributed``.
+Two meshes.  Without ``group`` one controller drives every replica.
+With ``group`` (a ``torch.distributed`` process group of W ranks, one a
+device) replica ``r``'s slot block lives on rank ``r // (R / W)``, and
+every rank runs the host side identically, in SPMD style — the same
+registrations, placements, coalescer decisions and forest advances, in
+the same order — while it ticks only its own blocks.  The cross-replica
+scalars are then collectives: ``MeshTickStats`` is all-gathered and
+reduced (matches and overflow summed, the clock maxed) inside the tick,
+the placement's overflow pressure is gathered, and each tick's latency
+and overflow, which steer the coalescer, are agreed.  A
+tenant's matches are delivered by the rank that holds it; the union
+over the ranks is the single-device service's.  Rank r writes the
+shard files of its replicas and rank 0 the manifest, after the ranks
+have exchanged their hashes.
 
 Prefix sharing composes: the ``SharedPrefixForest`` advances once per
 tick on ``mesh[0]``, outside the replicas, and its views enter every
@@ -53,6 +65,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (
     CheckpointError,
@@ -62,6 +75,7 @@ from repro_torch.checkpoint import (
     validate_checkpoint,
 )
 from repro_torch.core import join as J
+from repro_torch.core.distributed import P, make_mesh
 from repro_torch.core.multi import (
     SlotState,
     SlotTickCache,
@@ -121,6 +135,7 @@ def build_mesh_slot_tick(
     max_out: int | None = None,
     *,
     prefix_depth: int = 0,
+    group=None,
 ):
     """Run ``build_slot_tick`` over every replica block of ``mesh`` (a
     sequence of devices, one per replica).
@@ -134,6 +149,10 @@ def build_mesh_slot_tick(
     ``mesh[0]``.  Batch, prefix view and watermark are replicated onto
     each distinct device; every replica's body is enqueued before
     anything waits, and nothing is read back to the host.
+
+    With ``group`` ``mesh`` lists this rank's replicas only, and the
+    ``MeshTickStats`` are the group's: one ``all_gather_into_tensor`` of
+    the three scalars, reduced on the device.
     """
     devices = tuple(_mesh_device(d) for d in mesh)
     home = devices[0]
@@ -173,6 +192,8 @@ def build_mesh_slot_tick(
             n_matches=res.n_new_matches.sum().to(I32),
             n_overflow=res.n_overflow.sum().to(I32),
             t_clock=home_cat(*[c[None] for c in clocks]).max())
+        if group is not None:
+            stats = _group_stats(stats, group)
         return tuple(new), res, stats
 
     if prefix_depth == 0:
@@ -182,6 +203,28 @@ def build_mesh_slot_tick(
         def tick(blocks, batch, prefix_view, watermark=None):
             return run(blocks, batch, prefix_view, watermark)
     return tick
+
+
+def _group_stats(stats: MeshTickStats, group) -> MeshTickStats:
+    """The group's ``MeshTickStats`` from each rank's: one all-gather of
+    the three int32 scalars, summed and maxed on the device."""
+    mine = torch.stack(list(stats))
+    out = mine.new_empty((dist.get_world_size(group) * 3,))
+    dist.all_gather_into_tensor(out, mine, group=group)
+    out = out.view(-1, 3)
+    return MeshTickStats(n_matches=out[:, 0].sum().to(I32),
+                         n_overflow=out[:, 1].sum().to(I32),
+                         t_clock=out[:, 2].max())
+
+
+def _gather_host(values, group, device) -> np.ndarray:
+    """Every rank's host numbers, ``[ranks, len(values)]`` float64: one
+    all-gather of a tensor on ``device`` (the group's backend moves
+    it)."""
+    x = torch.tensor(values, dtype=torch.float64, device=device)
+    out = x.new_empty((dist.get_world_size(group) * len(values),))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.view(-1, len(values)).cpu().numpy()
 
 
 # --------------------------------------------------------------------- #
@@ -278,6 +321,13 @@ class ShardedSearchService(ContinuousSearchService):
     one device.  ``n_replicas`` defaults to ``len(devices)``.
     Checkpoints are written as per-replica npz shards;
     ``restore(..., n_replicas=R')`` repacks onto another replica count.
+
+    ``group`` (keyword-only) runs the service over a ``torch.
+    distributed`` process group, every rank constructing it and calling
+    it alike (see the module docstring): ``n_replicas`` must divide by
+    the group's size, and this rank holds replicas ``local``.
+    ``state(qid)`` and ``matches(qid)`` answer for the tenants of this
+    rank.
     """
 
     _MESH_SERVICE = True        # restore-dispatch marker (service.py)
@@ -290,6 +340,7 @@ class ShardedSearchService(ContinuousSearchService):
         mesh: dict | None = None,
         *,
         devices=None,
+        group=None,
         **kw,
     ):
         # ``mesh`` is the manifest-config form (restore round trip);
@@ -328,11 +379,22 @@ class ShardedSearchService(ContinuousSearchService):
         self.slots_per_replica = int(slots_per_replica)
         self.placement = _resolve_placement(placement)
         self.mesh = devices[:self.n_replicas]
-        self._distinct = tuple(dict.fromkeys(self.mesh))
+        self.group = group
+        lo, hi = 0, self.n_replicas
+        if group is not None:
+            world = dist.get_world_size(group)
+            if self.n_replicas % world:
+                raise ValueError(f"n_replicas={self.n_replicas} does not "
+                                 f"split over a group of {world} ranks")
+            per = self.n_replicas // world
+            lo = dist.get_rank(group) * per
+            hi = lo + per
+        self.local = range(lo, hi)          # the replicas this rank holds
+        self._distinct = tuple(dict.fromkeys(self.mesh[lo:hi]))
         self.mesh_stats: dict[int, MeshTickStats] = {}  # gid -> last tick
         super().__init__(
             slots_per_group=self.n_replicas * self.slots_per_replica,
-            device=self.mesh[0], **kw)
+            device=self.mesh[lo], **kw)
 
     # -------------------------------------------------------------- #
     # placement
@@ -347,14 +409,33 @@ class ShardedSearchService(ContinuousSearchService):
     def replica_pressure(self) -> list[int]:
         """Cumulative dropped appends per replica, summed over every
         live group's slot block (slot-table counters only — shared
-        prefix-chain drops are not replica-attributable)."""
+        prefix-chain drops are not replica-attributable).  Over a group
+        the ranks' counts are all-reduced, so every rank places alike."""
+        pressure = self._local_pressure()
+        if self.group is not None:
+            pressure = [int(x) for x in _gather_host(
+                pressure, self.group, self.device).sum(axis=0)]
+        return pressure
+
+    def _local_pressure(self) -> list[int]:
+        """``replica_pressure`` of the replicas this rank holds (0 for
+        the others), without a collective."""
         pressure = [0] * self.n_replicas
         for g in self._iter_groups():
             if g.idle:
                 continue
-            for r, b in enumerate(g.blocks()):
-                pressure[r] += int(b.engines.stats.n_overflow.sum())
+            for r in self.local:
+                pressure[r] += int(
+                    g.sstate[r].engines.stats.n_overflow.sum())
         return pressure
+
+    def _slot_overflow(self, live) -> int:
+        # over a group each rank holds its own blocks: summed over the
+        # ranks (the forest's chains, the same on every rank, are not)
+        mine = super()._slot_overflow(live)
+        if self.group is None:
+            return mine
+        return int(_gather_host([mine], self.group, self.device).sum())
 
     def _place(self, groups, plan, leaf, signature):
         r = self.placement.place(self, signature)
@@ -374,9 +455,10 @@ class ShardedSearchService(ContinuousSearchService):
         depth = 0 if leaf is None else leaf.depth
         before = self.tick_cache.n_builds
         tick = self.tick_cache.get_mesh(
-            template, self.mesh, self.slots_per_replica,
-            backend=self.backend, extract_matches=self.extract_matches,
-            max_out=self.max_out, prefix_depth=depth)
+            template, self.mesh[self.local.start:self.local.stop],
+            self.slots_per_replica, backend=self.backend,
+            extract_matches=self.extract_matches, max_out=self.max_out,
+            prefix_depth=depth, group=self.group)
         self.n_compiles += self.tick_cache.n_builds - before
         g = _Group(
             gid=self._next_gid,
@@ -384,7 +466,8 @@ class ShardedSearchService(ContinuousSearchService):
             tick=tick,
             sstate=tuple(init_slot_state(template, self.slots_per_replica,
                                          depth, device=d)
-                         for d in self.mesh),
+                         if r in self.local else None
+                         for r, d in enumerate(self.mesh)),
             empty=init_state(template, depth, device=self.device),
             qids=[None] * self.slots_per_group,
             prefix=leaf,
@@ -394,19 +477,48 @@ class ShardedSearchService(ContinuousSearchService):
         return g
 
     def _shard_state(self, sstate: SlotState) -> tuple:
-        """Split a whole-slot-axis SlotState (host or device leaves) into
-        the per-replica blocks, block ``r`` on ``mesh[r]``."""
-        spr = self.slots_per_replica
+        """Split a SlotState of this rank's slot axis (every slot without
+        a group; host or device leaves) into the per-replica blocks,
+        block ``r`` on ``mesh[r]``, None for another rank's."""
+        spr, first = self.slots_per_replica, self.local.start
         return tuple(
-            map_state(lambda x, lo=r * spr, d=d: torch.as_tensor(
+            map_state(lambda x, lo=(r - first) * spr, d=d: torch.as_tensor(
                 x[lo:lo + spr], device=d), sstate)
+            if r in self.local else None
             for r, d in enumerate(self.mesh))
 
     def _group_tree(self, g: _Group):
-        # the whole slot axis on the host, one copy per replica block
+        # this rank's slot axis on the host, one copy per replica block
         return map_state(
             lambda *xs: np.concatenate([x.detach().cpu().numpy()
-                                        for x in xs]), *g.sstate)
+                                        for x in xs]), *g.blocks())
+
+    def _restore_arrays(self, ckpt_dir, step, like):
+        if self.group is None:
+            return super()._restore_arrays(ckpt_dir, step, like)
+        # this rank's rows of every slot-axis key, the forest whole
+        world = len(self.mesh) // len(self.local)
+        mesh = make_mesh((world,), ("replica",),
+                         devices=(self.device,) * world, group=self.group)
+        specs = {k: map_state(
+            lambda x, k=k: P("replica") if x.ndim and
+            not k.startswith("prefix") else P(), v)
+            for k, v in like.items()}
+        return restore_checkpoint(ckpt_dir, step, like, mesh=mesh,
+                                  specs=specs)
+
+    def _result_slots(self, g: _Group):
+        first = self.local.start * self.slots_per_replica
+        last = self.local.stop * self.slots_per_replica
+        return [(k - first, q) for k, q in enumerate(g.qids)
+                if q is not None and first <= k < last]
+
+    def _agree_tick(self, lat_ms: float, tick_overflow: int):
+        if self.group is None:
+            return lat_ms, tick_overflow
+        every = _gather_host([lat_ms, tick_overflow], self.group,
+                             self.device)
+        return float(every[:, 0].max()), int(every[:, 1].sum())
 
     def _set_group_state(self, g: _Group, sstate) -> None:
         g.sstate = self._shard_state(sstate)
@@ -420,20 +532,30 @@ class ShardedSearchService(ContinuousSearchService):
                        watermark=None):
         # the base class's flow, with the mesh tick's third output kept
         # per group for observability
+        lo, hi = self.local.start, self.local.stop
+        blocks = g.sstate[lo:hi]
         if g.prefix is not None:
-            g.sstate, res, mstats = g.tick(
-                g.sstate, batch, views[g.prefix.pid], watermark)
+            blocks, res, mstats = g.tick(
+                blocks, batch, views[g.prefix.pid], watermark)
             chain_nd = self.forest.chain_tick_overflow(g.prefix, forest_nds)
-            active = [b.params.active for b in g.sstate]
+            active = [b.params.active for b in blocks]
             active = active[0] if len(active) == 1 else torch.cat(
                 [a.to(self.device, non_blocking=True) for a in active])
             res = res._replace(
                 n_overflow=res.n_overflow + torch.where(
                     active, chain_nd, torch.zeros_like(chain_nd)))
         else:
-            g.sstate, res, mstats = g.tick(g.sstate, batch, watermark)
+            blocks, res, mstats = g.tick(blocks, batch, watermark)
+        g.sstate = g.sstate[:lo] + tuple(blocks) + g.sstate[hi:]
         self.mesh_stats[g.gid] = mstats
         return res
+
+    def state(self, qid: int):
+        group, k = self._location[qid]
+        if group.slot(k)[0] is None:
+            raise ValueError(f"tenant {qid} is held by another rank "
+                             f"(replica {k // self.slots_per_replica})")
+        return super().state(qid)
 
     def last_mesh_stats(self) -> dict[int, dict]:
         """Host values of every group's last-tick ``MeshTickStats``."""
@@ -451,7 +573,7 @@ class ShardedSearchService(ContinuousSearchService):
                                                  default=0))
         obs.register_gauge(
             "mesh.replica_pressure_max",
-            lambda: max(self.replica_pressure(), default=0))
+            lambda: max(self._local_pressure(), default=0))
 
     def _trace_tick_extras(self, tr) -> None:
         # after the barrier: reading the scalars adds no sync point
@@ -490,7 +612,8 @@ class ShardedSearchService(ContinuousSearchService):
         if self.forest is not None:
             replicated = tuple(
                 f"prefix{n.pid}" for n in self.forest.nodes())
-        return {"n_shards": self.n_replicas, "replicated": replicated}
+        return {"n_shards": self.n_replicas, "replicated": replicated,
+                "group": self.group}
 
     @classmethod
     def restore(
@@ -507,6 +630,7 @@ class ShardedSearchService(ContinuousSearchService):
         *,
         devices=None,
         device=None,
+        group=None,
     ) -> "ShardedSearchService":
         """Rebuild a sharded service from its newest usable checkpoint.
 
@@ -517,8 +641,10 @@ class ShardedSearchService(ContinuousSearchService):
         policy re-places every tenant, and each tenant's engine rows are
         spliced from its old slot into its new one (the shards are
         reassembled on the host, so the files do not depend on the
-        mesh).  ``devices`` / ``device`` place the replicas as the
-        constructor does.
+        mesh).  ``devices`` / ``device`` / ``group`` place the replicas
+        as the constructor does: over a group every rank calls it, reads
+        its own replicas' rows (the repack path reads the whole old
+        layout on each rank) and re-places alike.
         """
         overrides = {}
         if backend is not None:
@@ -533,6 +659,8 @@ class ShardedSearchService(ContinuousSearchService):
             overrides["tracer"] = tracer
         if devices is not None:
             overrides["devices"] = devices
+        if group is not None:
+            overrides["group"] = group
         candidates = ([step] if step is not None
                       else list(reversed(checkpoint_steps(ckpt_dir))))
         last_err: CheckpointError | None = None
@@ -631,10 +759,11 @@ class ShardedSearchService(ContinuousSearchService):
                 gs = svc._groups.setdefault(gkey, [])
                 group, k2 = svc._place(gs, rq.plan, leaf, rq.signature)
                 block, row = group.slot(k2)
-                write_slot(block, group.template, row, rq.plan,
-                           empty=group.empty)
-                map_state(lambda full, o, row=row, k=k: full[row].copy_(o[k]),
-                          block.engines, old)
+                if block is not None:
+                    write_slot(block, group.template, row, rq.plan,
+                               empty=group.empty)
+                    map_state(lambda full, o, row=row, k=k:
+                              full[row].copy_(o[k]), block.engines, old)
                 group.qids[k2] = qid
                 svc._location[qid] = (group, k2)
                 if leaf is not None:

@@ -176,7 +176,8 @@ class _Group:
     qids: list = field(default_factory=list)   # qid | None per slot
     prefix: object = None             # share.PrefixNode leaf | None
     # mesh service: ``sstate`` is a tuple of per-replica SlotStates, each
-    # ``spr`` slots high (None: one SlotState holds every slot)
+    # ``spr`` slots high (None: one SlotState holds every slot); over a
+    # process group another rank's replica is None here
     spr: int | None = None
 
     def free_slot(self, lo: int = 0, hi: int | None = None) -> int | None:
@@ -188,15 +189,18 @@ class _Group:
                 return k
         return None
 
-    def slot(self, k: int) -> tuple[SlotState, int]:
-        """The SlotState holding slot ``k``, and k's row in it."""
+    def slot(self, k: int) -> tuple[SlotState | None, int]:
+        """The SlotState holding slot ``k``, and k's row in it (None for
+        a slot that another rank holds)."""
         if self.spr is None:
             return self.sstate, k
         return self.sstate[k // self.spr], k % self.spr
 
     def blocks(self) -> tuple:
-        """Every SlotState of the group (one per replica on a mesh)."""
-        return (self.sstate,) if self.spr is None else tuple(self.sstate)
+        """Every SlotState of the group this process holds (one per
+        replica on a mesh)."""
+        return (self.sstate,) if self.spr is None else tuple(
+            b for b in self.sstate if b is not None)
 
     @property
     def idle(self) -> bool:
@@ -353,8 +357,9 @@ class ContinuousSearchService:
             groups = self._groups.setdefault(gkey, [])
             group, k = self._place(groups, rq.plan, leaf, rq.signature)
             block, row = group.slot(k)
-            write_slot(block, group.template, row, rq.plan,
-                       empty=group.empty)
+            if block is not None:
+                write_slot(block, group.template, row, rq.plan,
+                           empty=group.empty)
         except Exception:
             # no half-registered tenant: roll the qid, any acquired
             # prefix references and an empty group-key entry back out
@@ -380,7 +385,8 @@ class ContinuousSearchService:
         """
         group, k = self._location.pop(qid)
         block, row = group.slot(k)
-        clear_slot(block, group.template, row, empty=group.empty)
+        if block is not None:
+            clear_slot(block, group.template, row, empty=group.empty)
         group.qids[k] = None
         self.registry.unregister(qid)
         leaf = self._prefix_of.pop(qid, None)
@@ -407,8 +413,7 @@ class ContinuousSearchService:
         else:
             groups = self._iter_groups()
         live = [g for g in groups if not g.idle]
-        total = sum(int(b.engines.stats.n_overflow.sum())
-                    for g in live for b in g.blocks())
+        total = self._slot_overflow(live)
         if self.forest is not None:
             seen = set()
             for g in live:
@@ -418,6 +423,11 @@ class ContinuousSearchService:
                     total += int(node.state.n_overflow)
                     node = node.parent
         return total
+
+    def _slot_overflow(self, live) -> int:
+        """The dropped appends of the slot tables of groups ``live``."""
+        return sum(int(b.engines.stats.n_overflow.sum())
+                   for g in live for b in g.blocks())
 
     def drop_idle_groups(self) -> int:
         """Release all fully-empty slot groups; returns how many were
@@ -484,9 +494,8 @@ class ContinuousSearchService:
                 continue
             res = self._advance_group(g, batch, views, forest_nds,
                                       watermark)
-            for k, qid in enumerate(g.qids):
-                if qid is not None:
-                    out[qid] = map_state(lambda x, k=k: x[k], res)
+            for k, qid in self._result_slots(g):
+                out[qid] = map_state(lambda x, k=k: x[k], res)
         self.n_ticks += 1
         self.n_edges_ingested += int(batch.valid.sum())
         return out
@@ -599,9 +608,7 @@ class ContinuousSearchService:
         n_matches = 0
         for g, res in results:
             host = map_state(lambda x: x.cpu().numpy(), res)
-            for k, qid in enumerate(g.qids):
-                if qid is None:
-                    continue
+            for k, qid in self._result_slots(g):
                 n_new = int(host.n_new_matches[k])
                 tick_overflow += int(host.n_overflow[k])
                 n_matches += n_new
@@ -610,6 +617,7 @@ class ContinuousSearchService:
                     valid = host.match_valid[k]
                     on_match(qid, host.match_bindings[k][valid],
                              host.match_ets[k][valid])
+        lat_ms, tick_overflow = self._agree_tick(lat_ms, tick_overflow)
         if tr is not None:
             tr.record("tick.deliver",
                       (time.perf_counter() - t_end) * 1e3,
@@ -626,6 +634,17 @@ class ContinuousSearchService:
             if views:
                 obs.counter("share.n_prefix_ticks").inc(len(views))
         return lat_ms, tick_overflow, len(views)
+
+    def _result_slots(self, g: _Group):
+        """``(row of the group's tick result, qid)`` of every live slot
+        whose result this process holds."""
+        return [(k, q) for k, q in enumerate(g.qids) if q is not None]
+
+    def _agree_tick(self, lat_ms: float, tick_overflow: int):
+        """The tick's latency and overflow as the coalescer reads them;
+        the mesh service over a process group agrees them across the
+        ranks."""
+        return lat_ms, tick_overflow
 
     def _trace_tick_extras(self, tr: Tracer) -> None:
         """Tracer-on hook after the tick barrier — the mesh service
@@ -857,6 +876,11 @@ class ContinuousSearchService:
         """Install a restored whole-slot-axis SlotState into ``g``."""
         g.sstate = sstate
 
+    def _restore_arrays(self, ckpt_dir: str, step: int, like: dict) -> dict:
+        """The arrays of ``like`` (``_ckpt_tree``'s layout) from
+        checkpoint ``step``."""
+        return restore_checkpoint(ckpt_dir, step, like)
+
     def _ckpt_tree(self) -> dict:
         tree = {str(g.gid): self._group_tree(g) for g in self._iter_groups()}
         if self.forest is not None:
@@ -1026,7 +1050,7 @@ class ContinuousSearchService:
                 like[f"prefix{n.pid}"] = n.state
         svc._next_gid = 1 + max(
             (int(gid) for gid in man["groups"]), default=-1)
-        restored = restore_checkpoint(ckpt_dir, step, like)
+        restored = svc._restore_arrays(ckpt_dir, step, like)
         for g in svc._iter_groups():
             svc._set_group_state(g, restored[str(g.gid)])
         if svc.forest is not None:

@@ -223,6 +223,12 @@ TORCH_CASES = [
     ("synchronize", "        torch.cuda.synchronize()\n        return state",
      "TRC103"),
     ("where_one_arg", "        return torch.where(batch > 0)", "TRC103"),
+    ("object_collective",
+     "        out = [None, None]\n"
+     "        torch.distributed.all_gather_object(out, batch)\n"
+     "        return state", "TRC103"),
+    ("barrier", "        torch.distributed.barrier()\n        return state",
+     "TRC103"),
     ("float_of_tensor", "        return state + float(batch.sum())",
      "TRC101"),
     ("assert_on_tensor", "        assert (batch >= 0).all()\n"
@@ -237,6 +243,11 @@ TORCH_CASES = [
      "            return state[: batch.size(0)]\n        return state", None),
     ("host_loop_bound", "        for i in range(batch.shape[0]):\n"
      "            state = state + i\n        return state", None),
+    ("tensor_collectives",
+     "        out = batch.new_empty((2 * batch.shape[0],))\n"
+     "        torch.distributed.all_gather_into_tensor(out, batch)\n"
+     "        torch.distributed.all_reduce(out)\n"
+     "        return state + out.sum()", None),
 ]
 
 

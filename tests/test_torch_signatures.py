@@ -437,3 +437,51 @@ def test_remat_is_keyword_only():
     for cls in (GNNConfig, NequIPConfig):
         p = inspect.signature(cls).parameters["remat"]
         assert p.kind == inspect.Parameter.KEYWORD_ONLY and p.default is False
+
+
+# the port's process-group mesh: ``group=`` (a torch.distributed process
+# group) is a port-only keyword, keyword-only, after every parameter the
+# reference has
+GROUP_KEYWORD = [
+    ("core.distributed", "make_mesh", None),
+    ("core.distributed", "Mesh", None),
+    ("runtime.mesh", "ShardedSearchService", "ShardedSearchService"),
+    ("runtime.mesh", "ShardedSearchService.restore",
+     "ShardedSearchService.restore"),
+    ("api.session", "StreamSession", "StreamSession"),
+    ("api.session", "StreamSession.restore", "StreamSession.restore"),
+]
+
+
+def _attr(module, dotted: str):
+    obj = module
+    for part in dotted.split("."):
+        obj = _unwrap(inspect.getattr_static(obj, part)) \
+            if inspect.isclass(obj) else getattr(obj, part)
+    return obj
+
+
+@pytest.mark.parametrize("rel,name,ref_name", GROUP_KEYWORD,
+                         ids=[f"{r}.{n}" for r, n, _ in GROUP_KEYWORD])
+def test_group_is_a_port_only_keyword(rel, name, ref_name):
+    """``group=`` is keyword-only in the port, and where the reference
+    has the callable, it has no ``group`` and every one of its named
+    public parameters comes before the port's ``group`` (``**kw`` and
+    the private ``_service`` stay last)."""
+    port = inspect.signature(_attr(
+        importlib.import_module(f"repro_torch.{rel}"), name)).parameters
+    assert port["group"].kind == inspect.Parameter.KEYWORD_ONLY
+    assert port["group"].default is None
+    if ref_name is None:        # the reference's mesh is jax.sharding's
+        return
+    ref = inspect.signature(_attr(_import_reference(rel),
+                                  ref_name)).parameters
+    assert "group" not in ref
+    order = list(port)
+    shared = [p for p, v in ref.items() if p in port
+              and not p.startswith("_") and v.kind not in (
+                  inspect.Parameter.VAR_KEYWORD,
+                  inspect.Parameter.VAR_POSITIONAL)]
+    assert shared
+    assert all(order.index(p) < order.index("group") for p in shared), \
+        (name, order)

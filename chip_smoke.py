@@ -149,6 +149,20 @@ exit, nothing is caught and skipped):
                 and p50/p99 per world size beside the one-process mesh's,
                 the backend, and the collectives' host and device ms a
                 tick;
+  sharded_cells the model cells over a mesh of ranks
+                (``launch.cells.cell_for(..., mesh=)`` on a process-group
+                ``("data", "model")`` mesh; NCCL at world 1 on (1, 1),
+                gloo at 4 on (2, 2) sharing the card): Wide&Deep at its
+                published width (train 65,536 x 3 steps, serve 512), GIN
+                and GAT at Cora, NequIP at molecule, qwen3-14b at full
+                width and 2 layers in float32 (a FSDP x TP step on 2 x
+                64 tokens, a decode step); each against the one-process
+                cell from the same seed (loss, grad_norm, sampled
+                parameters within lr sum |dstep| + 16 ulps a step,
+                logits); every rank launches the embedding_bag and
+                segment_sum kernels where the one-process cell does, the
+                same count; per rank: throughput, step s, peak, the
+                collectives' calls and host / device ms a step;
   sjtree        the paper's baseline comparison (Figures 14-17): the
                 SJ-tree (``core.sjtree``: every edge its own leaf, the
                 timing order checked by a host post-filter) against the
@@ -217,9 +231,10 @@ exit, nothing is caught and skipped):
   gnn_train     the GNN zoo's train steps (``make_gnn_train_step``, AdamW
                 fp32): GIN at the products shape (bf16, remat), GAT at
                 Cora (float32), GAT and PNA on the sampler's subgraph
-                (bf16, remat), NequIP ``mse_loss`` on the molecules; one
-                step of each held to the plain version's (loss,
-                grad_norm, gradients, parameters), step time, nodes/s
+                (bf16, remat; PNA in float32 too), NequIP ``mse_loss``
+                on the molecules; one step of each held to the plain
+                version's (loss, grad_norm, gradients, parameters; PNA's
+                gradients in float32 only), step time, nodes/s
                 (atoms/s), peak memory, segment_sum launches a step;
   lm_serve      qwen3-14b at its full width and depth (40 layers), bf16,
                 seeded weights, through ``prefill`` and greedy
@@ -249,8 +264,9 @@ exit, nothing is caught and skipped):
                 bf16 compute on float32 masters, AdamW fp32, remat
                 (``make_lm_train_step``, ``train_lm``): (a) one float32
                 step on the card against the CPU from the same parameters
-                (loss, grad_norm, gradients, every parameter; 1 layer if
-                the host lacks the memory, said why); (b) 4 microbatches
+                (loss, grad_norm, gradients, every parameter; 1 layer:
+                the CPU side's minutes, cut for the script's time); (b) 4
+                microbatches
                 against 1 over 8 x 512 tokens within 1e-2; (c) a warm-up
                 and 5 timed steps of 8 x 4,096 tokens in 4 microbatches
                 (train_4k's sequence and microbatches, batch 256 cut):
@@ -265,11 +281,17 @@ exit, nothing is caught and skipped):
                 reckoned peak within 15% of the peak measured around that
                 same call alone (the counter reset just before it), the
                 reckoned FLOPs beside the model FLOPs, the roofline's
-                dominant term and bound.
+                dominant term and bound; and qwen3-14b's decode_32k
+                and train_4k as rank 0 of pod16x16 under the "fake"
+                process-group backend (traced in a process of its own
+                beside the LM phases), each rank's reckoned peak beside
+                the one card's (decode_32k), with its collectives.
 
 Each path's kernel launch counter is zeroed just before the path is
 driven and read just after (serve, session, frontier, each mesh run,
-each capacity run, each rank of the ranks phase, each SJ-tree run, each mask case's entry-point call,
+each capacity run, each rank of the ranks phase, each case of each
+rank (and of the one-process cell) of sharded_cells, each SJ-tree run,
+each mask case's entry-point call,
 recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
 each model of minibatch_infer, each case's timed steps of gnn_train);
@@ -373,7 +395,13 @@ def _free(torch) -> None:
         torch.cuda.empty_cache()
 
 
+_T0 = time.perf_counter()
+_PHASE_END = {}     # phase -> seconds since the script started, at its line
+
+
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        _PHASE_END[obj["phase"]] = time.perf_counter() - _T0
     print(json.dumps(obj), flush=True)
 
 
@@ -2526,7 +2554,8 @@ def _rank_stage(torch, dist):
     in this rank process (the tick calls them through
     ``torch.distributed``): returns the counters."""
     acc = {"calls": 0, "host_ms": 0.0}
-    for name in ("all_gather_into_tensor", "all_reduce"):
+    for name in ("all_gather_into_tensor", "all_reduce",
+                 "reduce_scatter_tensor"):
         real = getattr(dist, name)
 
         def timed(*a, real=real, **k):
@@ -2543,7 +2572,6 @@ def _collective_device_ms(torch, fn, reps: int = 3) -> dict:
     """Device ms a call of ``fn`` spends in the collectives' device work
     (NCCL kernels; under gloo, the copies that stage through the host —
     the tick itself copies nothing between host and card), by name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2553,15 +2581,22 @@ def _collective_device_ms(torch, fn, reps: int = 3) -> dict:
         for _ in range(reps):
             fn()
         _sync(torch)
-    by, total = {}, 0.0
+    by = _collective_ms_by_name(prof, reps)
+    return {"device_ms": sum(by.values()), "by_name": by}
+
+
+def _collective_ms_by_name(prof, reps: int) -> dict:
+    """A profiler window's device ms a rep in the collectives' device
+    work (NCCL kernels; gloo's host staging copies), by name."""
+    from torch.autograd import DeviceType
+
+    by = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or not _dev_us(e):
             continue
         if "nccl" in e.key.lower() or "memcpy" in e.key.lower():
-            ms = _dev_us(e) / 1e3 / reps
-            by[e.key[:60]] = ms
-            total += ms
-    return {"device_ms": total, "by_name": by}
+            by[e.key[:60]] = _dev_us(e) / 1e3 / reps
+    return by
 
 
 def _rank_main(rank: int, world: int, backend: str, job: dict) -> None:
@@ -2905,6 +2940,734 @@ def _ranks_run(tmp, backend, world, run_s, want, finals, one_process, args,
     run["by_slots_all"] = sum((Counter(rk["launches_by_slots"])
                                for rk in ranks), Counter())
     return run
+
+
+# --------------------------------------------------------------------- #
+# sharded_cells: the model cells over a mesh of ranks
+# --------------------------------------------------------------------- #
+SC_RUNS = (("nccl", 1, (1, 1)), ("gloo", 4, (2, 2)))   # (backend, world,
+# mesh shape over ("data", "model")); NCCL takes one rank a card
+SC_NCCL_CASES = ("wd_train",)   # both kernels: the bags, their gradient
+SC_WD_STEPS = 3            # W&D steps held to the one-process cell's
+SC_WD_SERVE = 512          # serve_p99's batch
+# the FSDP x TP step, float32, held to the one-process step: sequences
+# x tokens, cut for time (each float32 step gathers its layers through
+# the host under gloo)
+SC_LM_CHECK = (2, 64)
+# the FSDP x TP step in bf16, the production dtype: lm_train's 8 x 4,096
+# (train_4k's 256 x 4,096) cut for memory, to the largest batch whose
+# four ranks' peaks (12.9 GiB each) and, before them, the one-process
+# step's (50.0 GiB) fit the one 80 GB card
+SC_LM_RUN = (4, 2048)
+SC_LM_RUN_TOL = 1e-2       # bf16: its loss and grad norm, relative
+SC_LM_DECODE = (2, 64)     # float32 decode check: batch x cache
+SC_ROWS = 64               # sampled rows (dim -2) of a large leaf
+SC_LEAD = 4                # sampled indices of each dim before those
+SC_WHOLE = 1 << 20         # a leaf of at most this many elements: whole
+SC_LM_TOL = 1e-4           # lm_train / lm_serve's float32 bound
+
+
+def _sc_arch(name: str, **cfg):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    arch = get_arch(name)
+    if cfg:
+        arch = dataclasses.replace(arch, config=dataclasses.replace(
+            arch.config, **cfg))
+    return arch
+
+
+def _sc_cells(torch):
+    """case -> (arch, shape): the sharded_cells phase's cells, each a
+    registry cell cut as its docstring says."""
+    import dataclasses as dc
+
+    wd = _sc_arch("wide-deep")
+    lm = _sc_arch(LM_ARCH, n_layers=LM_TRAIN_LAYERS)
+    lm32 = _sc_arch(LM_ARCH, n_layers=LM_TRAIN_LAYERS, dtype=torch.float32)
+    gin, gat, nqa = (_sc_arch(a) for a in ("gin-tu", "gat-cora", "nequip"))
+    return {
+        "wd_train": (wd, dc.replace(wd.shape("train_batch"),
+                                    global_batch=WD_TRAIN_BATCH)),
+        "wd_serve": (wd, dc.replace(wd.shape("serve_p99"),
+                                    global_batch=SC_WD_SERVE)),
+        "gin_cora": (gin, gin.shape("full_graph_sm")),
+        "gat_cora": (gat, gat.shape("full_graph_sm")),
+        "nequip_molecule": (nqa, nqa.shape("molecule")),
+        "lm_check": (lm32, dc.replace(
+            lm32.shape("train_4k"), global_batch=SC_LM_CHECK[0],
+            seq_len=SC_LM_CHECK[1], microbatches=1)),
+        "lm_decode": (lm32, dc.replace(
+            lm32.shape("decode_32k"), global_batch=SC_LM_DECODE[0],
+            seq_len=SC_LM_DECODE[1])),
+        "lm_run": (lm, dc.replace(
+            lm.shape("train_4k"), global_batch=SC_LM_RUN[0],
+            seq_len=SC_LM_RUN[1], microbatches=1)),
+    }
+
+
+def _sc_data(torch, seed: int) -> dict:
+    """The phase's inputs as host numpy arrays, made from ``seed``."""
+    import numpy as np
+
+    from repro_torch.configs.wide_deep import CONFIG
+    from repro_torch.data.graphs import synth_cora_like
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.launch.cells import _pad_up
+
+    def batch(n, step):
+        return recsys_batch(step, n, CONFIG.n_sparse, CONFIG.vocab_per_field,
+                            CONFIG.n_dense, CONFIG.n_wide_crosses, seed=seed)
+
+    def pad_edges(g):
+        e = len(g["edge_src"])
+        out = dict(g)
+        for k in ("edge_src", "edge_dst"):
+            out[k] = np.full(_pad_up(e), -1, np.int32)
+            out[k][:e] = g[k]
+        return out
+
+    cora = synth_cora_like(seed=seed)
+    cora = pad_edges({k: cora[k] for k in ("x", "edge_src", "edge_dst",
+                                           "labels")})
+    mol = make_molecules(seed)
+    mol.pop("n_graphs")
+    mol["energy"] = np.random.default_rng(seed + 1).standard_normal(
+        MOL_BATCH).astype(np.float32)
+    mol = pad_edges(mol)
+    rng = np.random.default_rng(seed + 7)
+    from repro_torch.configs.qwen3_14b import CONFIG as LM_CFG
+
+    def tokens(b, s):
+        return rng.integers(0, LM_CFG.vocab, (b, s)).astype(np.int32)
+
+    b, s = SC_LM_DECODE
+    kv = (LM_TRAIN_LAYERS, b, s, LM_CFG.n_kv_heads, LM_CFG.head_dim)
+    train = batch(WD_TRAIN_BATCH, 0)
+    # the tables' sampled rows: for each sampled field, rows the batch
+    # reads (evenly spaced over its ids) and rows it does not
+    rows = set()
+    for f in WD_SAMPLE_FIELDS:
+        used = np.unique(train["sparse_ids"][:, f])
+        rows.update(used[np.linspace(0, len(used) - 1,
+                                     WD_SAMPLE_TOUCHED).astype(int)].tolist())
+        rows.update(np.setdiff1d(rng.integers(
+            0, CONFIG.vocab_per_field, 8 * WD_SAMPLE_UNTOUCHED),
+            used)[:WD_SAMPLE_UNTOUCHED].tolist())
+    return {
+        "wd_train": train, "wd_serve": batch(SC_WD_SERVE, 1),
+        "wd_rows": sorted(rows), "gin_cora": cora, "gat_cora": cora,
+        "nequip_molecule": mol,
+        "lm_check": tokens(*SC_LM_CHECK), "lm_run": tokens(*SC_LM_RUN),
+        "lm_decode": (tokens(b, 1),
+                      rng.standard_normal(kv).astype(np.float32),
+                      rng.standard_normal(kv).astype(np.float32),
+                      rng.integers(s // 2, s - 1, b).astype(np.int32)),
+    }
+
+
+def _sc_plan(shape, rows=None) -> list:
+    """Which indices of a global leaf of ``shape`` the checks read, a
+    list per dim (None: all): a small leaf whole; else its last dim
+    whole, ``SC_ROWS`` evenly spaced indices of the dim before it and
+    ``SC_LEAD`` of each dim before that (``rows``: [lead, rows] given,
+    the W&D tables' fields and rows)."""
+    import numpy as np
+
+    n = int(np.prod(shape)) if len(shape) else 1
+    if n <= SC_WHOLE:
+        return [None] * len(shape)
+    if rows is not None:
+        return [list(WD_SAMPLE_FIELDS), rows, None]
+
+    def spaced(size, k):
+        return sorted(set(np.linspace(0, size - 1, min(k, size))
+                          .astype(int).tolist()))
+
+    if len(shape) == 1:
+        return [spaced(shape[0], SC_ROWS * SC_LEAD)]
+    return [spaced(s, SC_LEAD) for s in shape[:-2]] \
+        + [spaced(shape[-2], SC_ROWS), None]
+
+
+def _sc_piece(x, spec, mesh, plan, gshape):
+    """This rank's part of the sample ``plan`` of a leaf whose block is
+    ``x`` (``spec`` on ``mesh``; None: the whole leaf): (position lists
+    into the sample, values as numpy) or None."""
+    import numpy as np
+
+    sel, pos = [], []
+    for d, idx in enumerate(plan):
+        lo, n = 0, gshape[d]
+        if mesh is not None and spec is not None and d < len(spec.parts) \
+                and spec.parts[d] is not None:
+            n = gshape[d] // mesh.axis_size(spec.parts[d])
+            lo = mesh.axis_index(spec.parts[d]) * n
+        full = range(gshape[d]) if idx is None else idx
+        mine = [(k, i - lo) for k, i in enumerate(full) if lo <= i < lo + n]
+        if not mine:
+            return None
+        pos.append([k for k, _ in mine])
+        sel.append([i for _, i in mine])
+    if not plan:
+        return [], x.detach().float().cpu().numpy()
+    ix = _torch_ix(x, sel)
+    return pos, x.detach()[ix].float().cpu().numpy()
+
+
+def _torch_ix(x, sel):
+    """``np.ix_`` for a tensor: index tensors broadcasting to the grid."""
+    import torch
+
+    n = len(sel)
+    return tuple(torch.as_tensor(s, device=x.device).view(
+        [-1 if d == k else 1 for k in range(n)]) for d, s in enumerate(sel))
+
+
+def _sc_samples(torch, params, opt, specs, mesh, plans) -> list:
+    """The sample of every parameter leaf and its AdamW state on this
+    rank: [{"p", "m", "v"} of (positions, values) parts], the second
+    moment of a factored leaf reconstructed on the sample (``vr ⊗ vc /
+    mean(vr)``, the mean over the whole row: summed over the ranks)."""
+    import numpy as np
+
+    from repro_torch.core.collectives import all_reduce_
+    from repro_torch.core.distributed import P, global_shape
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    leaves = flatten(params)
+    states = flatten_up_to(params, opt["leaves"])
+    specs = [None] * len(leaves) if specs is None else flatten_up_to(
+        params, specs)
+    out = []
+    for x, st, sp, plan in zip(leaves, states, specs, plans):
+        sp = sp or P()
+        g = tuple(x.shape) if mesh is None else global_shape(
+            tuple(x.shape), sp, mesh)
+        rec = {"p": _sc_piece(x, sp, mesh, plan, g)}
+        if "m_q" in st:
+            sc = st["m_scale"].view(st["m_scale"].shape
+                                    + (1,) * (x.dim() - st["m_scale"].dim()))
+            m = st["m_q"].float() * sc
+        else:
+            m = st["m"]
+        rec["m"] = _sc_piece(m, sp, mesh, plan, g)
+        if "vr" in st:
+            rsp = P(*sp.parts[:-1]) if len(sp) else P()
+            csp = P(*(sp.parts[:-2] + sp.parts[-1:])) if len(sp) else P()
+            tot = st["vr"].sum(-1).contiguous()
+            if mesh is not None and len(sp) >= 2 and sp.parts[-2]:
+                all_reduce_(tot, mesh.axis_group(sp.parts[-2]))
+            den = (tot / g[-2]).clamp(min=1e-30)
+            rec["vr"] = _sc_piece(st["vr"], rsp, mesh, plan[:-1], g[:-1])
+            rec["vc"] = _sc_piece(st["vc"], csp, mesh,
+                                  plan[:-2] + plan[-1:], g[:-2] + g[-1:])
+            rec["den"] = _sc_piece(den, P(*rsp.parts[:-1]) if len(rsp)
+                                   else P(), mesh, plan[:-2], g[:-2])
+        else:
+            rec["v"] = _sc_piece(st["v"], sp, mesh, plan, g)
+        out.append(rec)
+        del m
+    return out
+
+
+def _sc_assemble(parts_by_rank: list, plans, shapes) -> list:
+    """The ranks' sample parts put together: [{"p", "m", "v"} numpy]."""
+    import numpy as np
+
+    def grid(plan, gshape):
+        return tuple(gshape[d] if idx is None else len(idx)
+                     for d, idx in enumerate(plan))
+
+    out = []
+    for i, (plan, gshape) in enumerate(zip(plans, shapes)):
+        rec = {}
+        for key, pl, gs in (("p", plan, gshape), ("m", plan, gshape),
+                            ("v", plan, gshape),
+                            ("vr", plan[:-1], gshape[:-1]),
+                            ("vc", plan[:-2] + plan[-1:],
+                             gshape[:-2] + gshape[-1:]),
+                            ("den", plan[:-2], gshape[:-2])):
+            pieces = [r[i].get(key) for r in parts_by_rank]
+            if not any(p is not None for p in pieces) and \
+                    key not in parts_by_rank[0][i]:
+                continue
+            arr = np.full(grid(pl, gs), np.nan, np.float64)
+            for piece in pieces:
+                if piece is None:
+                    continue
+                pos, val = piece
+                arr[np.ix_(*pos) if pos else ()] = val
+            rec[key] = arr
+        if "vr" in rec:
+            rec["v"] = rec.pop("vr")[..., :, None] * rec.pop("vc")[
+                ..., None, :] / rec.pop("den")[..., None, None]
+        out.append(rec)
+    return out
+
+
+def _sc_step_bound(got: list, want: list, lr: float, cfg) -> tuple:
+    """Parameters after ``len(got)`` steps (each step's samples, from the
+    same start) against the one-process ones: within ``lr Σ_k |step_k -
+    step'_k|`` (each step's Adam step from its own samples) plus 16
+    float32 ulps of the operands a step; every sample entry filled.
+    -> (worst err / bound, first step's gradient max rel err)."""
+    import numpy as np
+
+    ratio, grad_rel = 0.0, 0.0
+    n = len(got)
+    for i in range(len(got[-1])):
+        delta = 0.0
+        for k in range(n):
+            c1, c2 = 1 - cfg.b1 ** (k + 1), 1 - cfg.b2 ** (k + 1)
+            sa = (got[k][i]["m"] / c1) / (np.sqrt(got[k][i]["v"] / c2)
+                                          + cfg.eps)
+            sb = (want[k][i]["m"] / c1) / (np.sqrt(want[k][i]["v"] / c2)
+                                           + cfg.eps)
+            delta = delta + np.abs(sa - sb)
+        p, q = got[-1][i]["p"], want[-1][i]["p"]
+        if np.isnan(p).any() or np.isnan(q).any():
+            fail(f"sharded_cells: leaf {i}'s sample has unfilled entries")
+        tol = lr * delta + n * 16 * 2.0 ** -24 * (np.abs(q) + lr * (
+            np.abs(sb) + 1))
+        ratio = max(ratio, float((np.abs(p - q) / tol).max()))
+        ma, mb = got[0][i]["m"], want[0][i]["m"]
+        grad_rel = max(grad_rel, float(np.abs(ma - mb).max())
+                       / max(float(np.abs(mb).max()), 1e-30))
+    return ratio, grad_rel
+
+
+def _sc_fill(torch, tree, specs, mesh, data) -> None:
+    """Copy the host arrays ``data`` (a dict, or one array) into the
+    blocks ``tree`` holds under ``specs``."""
+    from repro_torch.core.distributed import local_block
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    keys = None if not isinstance(tree, dict) else sorted(tree)
+    leaves = flatten(tree)
+    sps = flatten_up_to(tree, specs) if specs is not None else [None] * len(
+        leaves)
+    vals = [data[k] for k in keys] if keys else [data]
+    with torch.no_grad():
+        for x, sp, v in zip(leaves, sps, vals):
+            v = torch.as_tensor(v)
+            if mesh is not None:
+                v = local_block(v, sp, mesh)
+            x.copy_(v.to(x.dtype))
+
+
+def _sc_kernel_counts(torch, prof) -> dict:
+    """Launches by kernel name of a profiler window: the embedding_bag
+    kernel's and the segment_sum kernels'."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        name = _kernel_name(e.key)
+        if e.device_type == DeviceType.CUDA and (
+                name == "eb_bag_sum" or name.startswith("sr_")):
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
+    """One case of the phase on ``mesh`` (None: the one-process cell on
+    the card): build the cell (``launch.cells.cell_for``), fill its
+    inputs from ``data``, run it, and return what the checks read:
+    losses, grad norms and parameter samples a step, or the gathered
+    outputs; step seconds, peak, kernel launches (the wrappers' counters
+    and a profiler window over the steps) and the collectives' host and
+    device ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.core.distributed import global_shape
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch.cells import cell_for
+    from repro_torch.optim.tree import flatten
+
+    arch, shape = cells[name]
+    _free(torch)
+    _reset_peak(torch)
+    t0 = time.perf_counter()
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        # one rank at a time makes its global arguments (then keeps its
+        # blocks): four ranks' whole tables at once would not fit
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                cell = cell_for(arch, shape, mesh=mesh, device=DEVICE)
+                _free(torch)
+            dist.barrier()
+    else:
+        cell = cell_for(arch, shape, mesh=mesh, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    ins = cell.in_shardings if mesh is not None else (None,) * len(
+        cell.args)
+    out = {"case": name, "build_s": build_s}
+    train = shape.kind == "train"
+    if train:
+        model, opt, batch = cell.args
+        _sc_fill(torch, batch, ins[2], mesh, data[name])
+        leaves = flatten(model.params())
+        specs = flatten(ins[0]) if mesh is not None else [None] * len(
+            leaves)
+        shapes = [tuple(x.shape) if sp is None else global_shape(
+            tuple(x.shape), sp, mesh) for x, sp in zip(leaves, specs)]
+        plans = [_sc_plan(s, data["wd_rows"] if name == "wd_train"
+                          and len(s) == 3 else None) for s in shapes]
+        steps = SC_WD_STEPS if name == "wd_train" else 1
+    else:
+        if name == "lm_decode":
+            tok, kc, vc, length = data[name]
+            params, t_a, k_a, v_a, l_a = cell.args
+            for a, sp, v in zip((t_a, k_a, v_a, l_a), ins[1:],
+                                (tok, kc, vc, length)):
+                _sc_fill(torch, a, sp, mesh, v)
+        else:
+            _sc_fill(torch, cell.args[1], ins[1], mesh, data[name])
+        steps = 1
+    _sync(torch)
+    eb.embedding_bag.launches = sr.segment_sum.launches = 0
+    stage["calls"], stage["host_ms"] = 0, 0.0
+    losses, norms, samples, times = [], [], [], []
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for k in range(steps):
+            t1 = time.perf_counter()
+            res = cell.fn(*cell.args)
+            _sync(torch)
+            times.append(time.perf_counter() - t1)
+            if train:
+                _, opt, l, gn = res
+                losses.append(float(l))
+                norms.append(float(gn))
+                if name != "lm_run":       # bf16: its loss and norm alone
+                    samples.append(_sc_samples(
+                        torch, model.params(), opt, ins[0], mesh, plans))
+    out.update(
+        step_s=times, peak_gib=_peak_gib(torch),
+        launches={"embedding_bag": eb.embedding_bag.launches,
+                  "segment_sum": sr.segment_sum.launches},
+        profiled_launches=_sc_kernel_counts(torch, prof)
+        if DEVICE == "cuda" else {},
+        collective_calls_per_step=stage["calls"] / steps,
+        collective_host_ms_per_step=stage["host_ms"] / steps,
+        collective_device_ms_per_step=(
+            sum(_collective_ms_by_name(prof, steps).values())
+            if DEVICE == "cuda" else None))
+    if train:
+        out.update(losses=losses, grad_norms=norms, samples=samples,
+                   plans=plans, shapes=shapes)
+    else:
+        # the logits (the first output), gathered from their blocks
+        x = res[0] if isinstance(res, tuple) else res
+        sp = None if mesh is None else flatten(cell.out_shardings)[0]
+        for d, e in enumerate(() if sp is None else sp.parts):
+            if e is not None:
+                x = all_gather(x.contiguous(), d, mesh.axis_group(e))
+        out["outputs"] = [x.float().cpu().numpy()]
+    # every tensor of the case let go before the cache is emptied
+    cell = res = model = opt = batch = x = leaves = params = None
+    t_a = k_a = v_a = l_a = None
+    _free(torch)
+    return out
+
+
+def _sc_rank_main(rank: int, world: int, backend: str, job: dict) -> None:
+    """One rank of the sharded_cells phase: every case of its run on the
+    ``(data, model)`` mesh; writes ``sc{backend}{world}_{rank}.pkl``
+    (rank 0 also the assembled samples)."""
+    import pickle
+
+    # four ranks' caches share the card: segments that grow in place
+    # leave less reserved and unused
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.core.distributed import make_mesh
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    go = os.path.join(job["dir"], f"go_{backend}{world}")
+    deadline = time.perf_counter() + RANKS_WAIT_S
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            fail(f"sharded_cells: rank {rank} of {backend} x {world} "
+                 f"waited {RANKS_WAIT_S} s for its turn")
+        time.sleep(0.01)
+    store = dist.FileStore(os.path.join(job["dir"], f"store_{backend}"
+                                                    f"{world}"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+    out = {"rank": rank, "backend": dist.get_backend(), "cases": {}}
+    try:
+        dist.all_reduce(torch.ones(1, device=DEVICE))
+        with open(job["data"], "rb") as f:
+            data = pickle.load(f)
+        shape = job["meshes"][f"{backend}{world}"]
+        mesh = make_mesh(shape, ("data", "model"),
+                         devices=(DEVICE,) * world, group=dist.group.WORLD)
+        cells = _sc_cells(torch)
+        stage = _rank_stage(torch, dist)
+        for name in job["cases"][f"{backend}{world}"]:
+            res = _sc_case(torch, name, mesh, data, cells, stage)
+            if "samples" in res:
+                parts = [None] * world
+                dist.all_gather_object(parts, res.pop("samples"))
+                if rank == 0:
+                    res["samples"] = [_sc_assemble([p[k] for p in parts],
+                                                   res["plans"],
+                                                   res["shapes"])
+                                      for k in range(len(parts[0]))]
+            out["cases"][name] = res
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(job["dir"], f"sc{backend}{world}_{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(out, f)
+
+
+def _sc_check(name, got, want) -> tuple:
+    """One case of a run against the one-process cell: (fields,
+    problems)."""
+    import numpy as np
+
+    from repro_torch.optim import AdamWConfig
+
+    problems, fields = [], {}
+    if "losses" in want:
+        tol = SC_LM_RUN_TOL if name == "lm_run" else SC_LM_TOL \
+            if name.startswith("lm") else (
+                1e-5 if name.startswith("wd") else want["tol"])
+        rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in
+               zip(got["losses"] + got["grad_norms"],
+                   want["losses"] + want["grad_norms"])]
+        fields.update(loss=got["losses"], one_process_loss=want["losses"],
+                      grad_norm=got["grad_norms"],
+                      one_process_grad_norm=want["grad_norms"],
+                      loss_grad_norm_max_rel_err=max(rel), tol=tol)
+        if max(rel) > tol:
+            problems.append(f"{name}: loss / grad_norm rel err {max(rel)} "
+                            f"> {tol}")
+        if want.get("samples"):
+            ratio, grad_rel = _sc_step_bound(got["samples"],
+                                             want["samples"], want["lr"],
+                                             AdamWConfig())
+            fields.update(param_err_over_bound=ratio,
+                          grad_max_rel_err=grad_rel)
+            if not ratio <= 1.0:
+                problems.append(f"{name}: parameters off their bound "
+                                f"(x{ratio})")
+            if not grad_rel <= tol:
+                problems.append(f"{name}: gradient rel err {grad_rel} > "
+                                f"{tol}")
+    else:
+        a, b = got["outputs"][0], want["outputs"][0]
+        err = float(np.abs(a.astype(np.float64) - b).max()) / max(
+            float(np.abs(b).max()), 1e-30)
+        tol = SC_LM_TOL if name.startswith("lm") else 1e-5
+        fields.update(output_max_err_rel_to_max=err, tol=tol)
+        if not err <= tol:
+            problems.append(f"{name}: outputs rel err {err} > {tol}")
+    return fields, problems
+
+
+def phase_sharded_cells(torch, seed: int):
+    """The model cells over a mesh of ranks (``launch.cells.cell_for(...,
+    mesh=)`` on ``core.distributed.make_mesh(..., group=)``): each rank
+    holds and computes its block of every cell argument.  NCCL at world
+    1 on a (1, 1) ``("data", "model")`` mesh runs the Wide&Deep train
+    step (both kernels: the bags and their gradient); gloo at world 4 on
+    (2, 2), ranks sharing the card (NCCL takes one rank a card), runs
+    them all:
+
+      wd_train        Wide&Deep at the published width (40 x 1,000,000 x
+                      32 tables, wide 4,000,000, MLP 1024-512-256),
+                      train_batch 65,536, AdamW factored, 3 steps
+      wd_serve        serve_p99, 512 examples
+      gin_cora,       GIN and GAT at full_graph_sm (Cora, edges padded
+      gat_cora        to the cells' 512 with -1), one step
+      nequip_molecule NequIP at molecule, one step
+      lm_check        qwen3-14b at full width, 2 layers, float32, one
+                      FSDP x TP step on 2 x 64 tokens (lm_train's 8 x
+                      4,096 cut for time: ``SC_LM_CHECK``)
+      lm_decode       its decode step, batch 2 against a 64 cache
+      lm_run          the 2 layers in bf16, one FSDP x TP step on 4 x
+                      2,048 tokens (lm_train's 8 x 4,096 cut for memory:
+                      ``SC_LM_RUN``), loss and grad norm within 1e-2
+
+    Each against the one-process cell from the same seed on the same
+    card, made first in this process: losses and grad norms (W&D 1e-5,
+    the GNNs ``_f32_tol``, the LM 1e-4 relative), parameters on their
+    samples (every leaf of a million entries or fewer whole; a larger
+    one on ``SC_ROWS`` rows, the W&D tables on the recsys_train phase's
+    sampled rows) within ``lr Σ |Δstep| + 16 ulps`` a step, outputs
+    (logits) 1e-5 or 1e-4 of their largest.  Every rank must launch the
+    embedding_bag kernel (W&D) and the segment_sum kernels (W&D's
+    backward, every GNN step).  Gloo stages CUDA tensors through host
+    memory: its collective times are a check of correctness and
+    contention, not NCCL's numbers."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sc_")
+    data = _sc_data(torch, seed)
+    job = {"dir": tmp, "data": os.path.join(tmp, "data.pkl"),
+           "meshes": {f"{b}{w}": m for b, w, m in SC_RUNS},
+           "cases": {f"{b}{w}": list(SC_NCCL_CASES if b == "nccl"
+                                     else _sc_cells(torch))
+                     for b, w, _ in SC_RUNS}}
+    with open(job["data"], "wb") as f:
+        pickle.dump(data, f)
+    contexts = []
+    try:
+        # the rank processes start now (imports, the card's context) and
+        # wait while this process runs the one-process cells
+        for backend, world, _ in SC_RUNS:
+            contexts.append(mp.start_processes(
+                _sc_rank_main, args=(world, backend, job), nprocs=world,
+                join=False, start_method="spawn"))
+        cells = _sc_cells(torch)
+        stage = {"calls": 0, "host_ms": 0.0}
+        one = {}
+        for name in cells:
+            one[name] = _sc_case(torch, name, None, data, cells, stage)
+            if "samples" in one[name]:
+                one[name]["samples"] = [
+                    _sc_assemble([s], one[name]["plans"],
+                                 one[name]["shapes"])
+                    for s in one[name]["samples"]]
+        _free(torch)
+        parent_gib = (torch.cuda.memory_allocated() / 2**30,
+                      torch.cuda.memory_reserved() / 2**30) \
+            if DEVICE == "cuda" else None
+        runs = {}
+        for (backend, world, shape), ctx in zip(SC_RUNS, contexts):
+            t0 = time.perf_counter()
+            open(os.path.join(tmp, f"go_{backend}{world}"), "w").close()
+            while not ctx.join():
+                pass
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"sc{backend}{world}_{r}.pkl"),
+                          "rb") as f:
+                    ranks.append(pickle.load(f))
+            runs[(backend, world)] = (ranks, time.perf_counter() - t0)
+    finally:
+        for ctx in contexts:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cora = data["gin_cora"]
+    d_cora = int(np.bincount(cora["edge_dst"][cora["edge_dst"] >= 0]).max())
+    d_mol = int(np.bincount(data["nequip_molecule"]["edge_dst"][
+        data["nequip_molecule"]["edge_dst"] >= 0]).max())
+    # the GNN rule: a step's segment sums (its launches) of at most the
+    # largest in-degree's terms, each reordered
+    tols = {"gin_cora": d_cora, "gat_cora": d_cora, "nequip_molecule": d_mol}
+    for name, res in one.items():
+        res["lr"] = 1e-4 if name.startswith("lm") else 1e-3
+        if name in tols:
+            res["tol"] = _f32_tol(res["launches"]["segment_sum"],
+                                  tols[name])
+
+    problems, rows, launches = [], [], {"embedding_bag": [],
+                                        "segment_sum": []}
+    for (backend, world), (ranks, run_s) in runs.items():
+        for name in job["cases"][f"{backend}{world}"]:
+            per = [rk["cases"][name] for rk in ranks]
+            want = one[name]
+            row = {"run": f"{backend} x {world}", "case": name,
+                   "mesh": list(job["meshes"][f"{backend}{world}"])}
+            fields, more = _sc_check(name, per[0], want)
+            row.update(fields)
+            problems += [f"{backend} x {world}: {p}" for p in more]
+            unit, n = {"wd_train": ("examples", WD_TRAIN_BATCH),
+                       "wd_serve": ("examples", SC_WD_SERVE),
+                       "gin_cora": ("edges", len(cora["edge_src"])),
+                       "gat_cora": ("edges", len(cora["edge_src"])),
+                       "nequip_molecule": ("edges", len(
+                           data["nequip_molecule"]["edge_src"])),
+                       "lm_check": ("tokens", np.prod(SC_LM_CHECK)),
+                       "lm_decode": ("tokens", SC_LM_DECODE[0]),
+                       "lm_run": ("tokens", np.prod(SC_LM_RUN))}[name]
+            t_rank = [_pctl(p["step_s"][1:] or p["step_s"], .5) for p in per]
+            t_one = _pctl(want["step_s"][1:] or want["step_s"], .5)
+            row.update({
+                f"{unit}_per_s": float(n / max(t_rank)),
+                f"one_process_{unit}_per_s": float(n / t_one),
+                "step_s": [p["step_s"] for p in per],
+                "one_process_step_s": want["step_s"],
+                "peak_gib": [p["peak_gib"] for p in per],
+                "one_process_peak_gib": want["peak_gib"],
+                "build_s": [p["build_s"] for p in per],
+                "launches": [p["launches"] for p in per],
+                "profiled_launches": [p["profiled_launches"] for p in per],
+                "one_process_launches": want["launches"],
+                "collective_calls_per_step":
+                    per[0]["collective_calls_per_step"],
+                "collective_host_ms_per_step": [
+                    p["collective_host_ms_per_step"] for p in per],
+                "collective_device_ms_per_step": [
+                    p["collective_device_ms_per_step"] for p in per]})
+            if name in ("lm_check", "lm_run"):
+                row["tokens_cut"] = {
+                    "from": [LM_TRAIN_BATCH, 4096],
+                    "to": list(SC_LM_CHECK if name == "lm_check"
+                               else SC_LM_RUN),
+                    "for": "time: float32 gathers cross the host"
+                    if name == "lm_check" else
+                    "memory: four ranks' peaks on one 80 GB card"}
+            for p in per:
+                for k in ("embedding_bag", "segment_sum"):
+                    launches[k].append(p["launches"][k])
+                if name.startswith("wd_") and p["launches"][
+                        "embedding_bag"] < 1:
+                    problems.append(f"{backend} x {world}: {name}: a rank "
+                                    "launched no embedding_bag kernel")
+                if (name == "wd_train" or name in tols) and p["launches"][
+                        "segment_sum"] < 1:
+                    problems.append(f"{backend} x {world}: {name}: a rank "
+                                    "launched no segment_sum kernel")
+                if p["launches"] != want["launches"]:
+                    problems.append(f"{backend} x {world}: {name}: a rank "
+                                    f"launched {p['launches']}, the "
+                                    f"one-process cell {want['launches']}")
+            rows.append(row)
+    out = {"phase": "sharded_cells", "device": DEVICE,
+           "card": _card_line() if DEVICE == "cuda" else None,
+           "seconds": time.perf_counter() - t_phase,
+           "runs": {f"{b} x {w}": {"mesh": list(m), "run_s": runs[(b, w)][1]}
+                    for b, w, m in SC_RUNS},
+           "parent_gib_allocated_reserved_during_ranks": parent_gib,
+           "cases": rows,
+           "note": "gloo stages CUDA tensors through host memory and its "
+                   "ranks share one card: its times and collective ms are "
+                   "a check of correctness and contention, not NCCL's; "
+                   "ogb_products on ranks waits for the 4-chip cell (four "
+                   "ranks on one card would hold four replicas' node "
+                   "arrays)"}
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out, {k: sum(v) for k, v in launches.items()}
 
 
 # --------------------------------------------------------------------- #
@@ -4296,13 +5059,15 @@ def _adam_step(torch, st, count: int, cfg):
     return (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
 
 
-def _step_checks(torch, what, got, want, rel_tol: float, cfg) -> tuple:
+def _step_checks(torch, what, got, want, rel_tol: float, cfg,
+                 grads: bool = True) -> tuple:
     """One train step from the same parameters and a zero AdamW state on
     the kernel path (``got``) and the plain path (``want``), each
     (params tree, opt state, loss, grad_norm): the loss and grad_norm
-    within ``rel_tol`` (relative); each leaf's gradient, read from its
-    first moment (``m = (1 - b1) clip(g)`` after one step), within
-    ``rel_tol`` of the leaf's largest entry; and each parameter within
+    within ``rel_tol`` (relative); where ``grads``, each leaf's gradient,
+    read from its first moment (``m = (1 - b1) clip(g)`` after one step),
+    within ``rel_tol`` of the leaf's largest entry (else its error is
+    reported and not held); and each parameter within
     ``lr |step_got - step_want|`` of the plain one plus 16 float32 ulps
     of the update's operands (about 7 roundings a side: the step's five,
     the decay, the product with lr and the difference), the steps
@@ -4328,7 +5093,7 @@ def _step_checks(torch, what, got, want, rel_tol: float, cfg) -> tuple:
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         grad_rel = max(grad_rel, err / max(scale, 1e-30))
-        if not err <= rel_tol * scale:
+        if grads and not err <= rel_tol * scale:
             problems.append(f"{what}: leaf {i} gradient max |err| {err} > "
                             f"{rel_tol} x {scale}")
         sa = _adam_step(torch, g_st[i], 1, cfg)
@@ -4344,7 +5109,7 @@ def _step_checks(torch, what, got, want, rel_tol: float, cfg) -> tuple:
     return {"loss": float(gl), "plain_loss": float(wl),
             "loss_rel_err": loss_rel, "grad_norm": float(gn),
             "plain_grad_norm": float(wn), "grad_norm_rel_err": gn_rel,
-            "grad_max_rel_err": grad_rel,
+            "grad_max_rel_err": grad_rel, "grads_held": grads,
             "param_err_over_bound": param_ratio,
             "tolerance_rel": rel_tol}, problems
 
@@ -4567,10 +5332,11 @@ def _f32_tol(n_sums: int, d_max: int) -> float:
 
 
 def _train_case(torch, what, make, loss, g, rel_tol, steps, launches_per,
-                deterministic=False):
+                deterministic=False, grads=True):
     """One GNN case: a step on the kernel path and one on the plain path
-    (``make("ref")``) from the same seed, held by ``_step_checks`` (both
-    under ``torch.use_deterministic_algorithms`` where ``deterministic``:
+    (``make("ref")``) from the same seed, held by ``_step_checks`` (each
+    leaf's gradient where ``grads``; both under
+    ``torch.use_deterministic_algorithms`` where ``deterministic``:
     GAT's bf16 softmax sums are ``index_add_`` atomics), then ``steps``
     timed steps on the kernel path in the default mode, the segment_sum
     launches counted over them (``launches_per`` a step)."""
@@ -4599,7 +5365,7 @@ def _train_case(torch, what, make, loss, g, rel_tol, steps, launches_per,
         if backend is None:
             kernel_model = model
     fields, problems = _step_checks(torch, what, runs[0], runs[1], rel_tol,
-                                    ocfg)
+                                    ocfg, grads)
     del runs, model
     opt = adamw_init(kernel_model.params(), ocfg)
     step(kernel_model, opt, g)                   # warm-up, not counted
@@ -4650,7 +5416,21 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
                     the cell's rule (bf16, ``remat=True``) on the
                     sampler's subgraph of the products graph (the cut of
                     minibatch_infer); 1e-2 as GIN (GAT's compared steps
-                    in deterministic mode, as gat_infer's forwards);
+                    in deterministic mode, as gat_infer's forwards).
+                    PNA's gradients are held in pna_minibatch_f32
+                    instead: a max / min aggregator's gradient goes
+                    whole to the messages equal to the extreme, and bf16
+                    messages tie often, so a bf16 rounding that the two
+                    paths' sums take differently (and the kernel's
+                    atomic order from run to run) can break or make a
+                    tie and move a gradient entry whole (on an H100
+                    80GB HBM3 at 700 W a leaf's largest first-moment
+                    error read 0.0068 or 0.0274 of its largest entry
+                    from one run to the next);
+      pna_minibatch_f32  the same PNA step with float32 activations,
+                    where such ties are rare: every check, each leaf's
+                    gradient included, at the same 1e-2 (on that card
+                    3.3e-5 to 1.7e-3 in 15 runs);
       nequip        NequIP ``nequip`` at the molecule shape on
                     ``mse_loss`` against seeded target energies, float32;
                     ``_f32_tol`` as GAT at Cora.
@@ -4694,10 +5474,10 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     problems, launches = [], {}
 
     def run(name, make, loss, graph, rel_tol, per_step, n_items, unit,
-            deterministic=False, **info):
+            deterministic=False, grads=True, **info):
         fields, t_med, more = _train_case(
             torch, f"gnn_train {name}", make, loss, graph, rel_tol,
-            GNN_TRAIN_STEPS, per_step, deterministic)
+            GNN_TRAIN_STEPS, per_step, deterministic, grads)
         fields[f"{unit}_per_s"] = n_items / t_med
         out["cases"][name] = {**info, **fields}
         launches[name] = fields["segment_sum_launches"]
@@ -4746,15 +5526,16 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     # stops at the last tensor the backward needs, and the head mean
     # after the last sum saves none; PNA's first layer gathers the input
     # features, which need no gradient
-    for name, cls, config, per in (("gat_minibatch", GAT, GAT_CFG,
-                                    5 * GAT_CFG.n_layers - 1),
-                                   ("pna_minibatch", PNA, PNA_CFG,
-                                    5 * PNA_CFG.n_layers - 1)):
-        cfg = big(config)
+    for name, cls, config, dtype, grads in (
+            ("gat_minibatch", GAT, GAT_CFG, torch.bfloat16, True),
+            ("pna_minibatch", PNA, PNA_CFG, torch.bfloat16, False),
+            ("pna_minibatch_f32", PNA, PNA_CFG, torch.float32, True)):
+        cfg = dataclasses.replace(big(config), dtype=dtype)
         run(name, gnn(cls, cfg), node_classification_loss, sg, 1e-2,
-            per, n_sub, "nodes",
-            deterministic=(cls is GAT), config=cfg.name, dtype="bfloat16",
-            remat=True, nodes=n_sub, seeds=MINIBATCH_SEEDS,
+            5 * cfg.n_layers - 1, n_sub, "nodes",
+            deterministic=(cls is GAT), grads=grads, config=cfg.name,
+            dtype=str(dtype).removeprefix("torch."), remat=True,
+            nodes=n_sub, seeds=MINIBATCH_SEEDS,
             cut="the products graph sampled, as minibatch_infer")
 
     # NequIP at the molecule shape: 3 sums a layer, forward only
@@ -5211,8 +5992,8 @@ def phase_moe_serve(torch, seed: int):
     calls = []
     real = tfm.moe_ffn
 
-    def recording(x, p, c):
-        y = real(x, p, c)
+    def recording(x, p, c, axes=None):
+        y = real(x, p, c, axes=axes)
         calls.append((x, p, y[0]))
         return y
 
@@ -5317,6 +6098,7 @@ LM_TRAIN_BATCH = 8         # train_4k's batch 256, cut; its 4 microbatches kept
 LM_TRAIN_STEPS = 5         # timed bf16 steps, after one warm-up step
 LM_TRAIN_LR = 3e-4         # train_lm's
 LM_TRAIN_CHECK = (2, 64, 2)     # (a): sequences, tokens each, microbatches
+LM_TRAIN_CHECK_LAYERS = 1  # (a)'s depth, cut from 2 for the script's time
 LM_TRAIN_CHECK_TOL = 1e-4  # float32, TF32 off: relative (PERF.md §2)
 LM_TRAIN_MB_SEQ = 512      # (b): 8 sequences of 512, 4 microbatches against 1
 LM_TRAIN_MB_TOL = 1e-4     # bf16 products, float32 sums: relative; read at
@@ -5325,6 +6107,10 @@ LM_TRAIN_RUN = ("small", 300, 100, 200)   # (d): profile, steps, every, resume
 LM_TRAIN_RESUME_TOL = 1e-4  # the resumed run's losses: float32 reordering
 CHECK_CHUNK = 1 << 26      # elements of a leaf compared at a time
 DRYRUN_PEAK_TOL = 0.15     # a reckoned peak against the measured one
+# qwen3-14b's cells traced per device on pod16x16 (None: also on one
+# card; train_4k's one-card trace takes minutes of host time)
+DRYRUN_MESH_SHAPES = {"decode_32k": (None, False), "train_4k": (False,)}
+DRYRUN_MESH_WAIT_S = 600   # the traces' process, beside the LM phases
 
 
 def _mem_available() -> int:
@@ -5394,10 +6180,11 @@ def _lm_train_vs_cpu(torch, cfg, ocfg, seed: int):
     """Check (a): one float32 step (TF32 off) of ``cfg`` at full width on
     the card and on the CPU from the same parameters (drawn on the card,
     copied to the host), ``LM_TRAIN_CHECK``'s tokens in two
-    microbatches.  The CPU side holds the parameters, AdamW's two
-    moments, the accumulator, a microbatch's gradients and the update's
-    temporaries: at 2 layers ~51 GB; with less MemAvailable the check
-    runs at 1 layer and says why."""
+    microbatches, at ``LM_TRAIN_CHECK_LAYERS`` layers (the CPU side's
+    step takes ~77 s at 2).  The CPU side holds the parameters, AdamW's
+    two moments, the accumulator, a microbatch's gradients and the
+    update's temporaries: at 2 layers ~51 GB; with less MemAvailable the
+    check runs at 1 layer and says why."""
     import dataclasses
 
     from repro_torch.launch.cells import lm_param_flops, make_lm_train_step
@@ -5413,7 +6200,7 @@ def _lm_train_vs_cpu(torch, cfg, ocfg, seed: int):
         p = lm_param_flops(c)[0] * 4
         return 4 * p + 5 * c.vocab * c.d_model * 4 + 4 * 2**30
 
-    layers, why = cfg.n_layers, None
+    layers, why = min(cfg.n_layers, LM_TRAIN_CHECK_LAYERS), None
     if avail < need(layers):
         why = (f"MemAvailable {avail} B < {need(layers)} B reckoned for "
                f"{layers} layers on the CPU")
@@ -5658,7 +6445,55 @@ def phase_lm_train(torch, seed: int):
     return out
 
 
-def phase_dryrun(torch, lm_serve: dict, lm_train: dict):
+_MESH_DRYRUN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch.dryrun import run_cell
+for shape, meshes in json.loads(sys.argv[3]).items():
+    for mp in meshes:
+        run_cell(sys.argv[4], shape, mp, out_dir=sys.argv[2], force=True)
+"""
+
+
+def start_mesh_dryrun():
+    """The dryrun phase's production-mesh traces (``DRYRUN_MESH_SHAPES``,
+    ``launch.dryrun.run_cell`` on the meta device, the "fake" backend:
+    host work only) started in a process of their own, to run beside the
+    card's phases.  -> a function that waits for it and returns the
+    records by (shape, multi_pod); the process is stopped if this one
+    exits first."""
+    import atexit
+
+    out_dir = os.path.join(HERE, "build", "dryrun_mesh")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _MESH_DRYRUN, os.path.join(HERE, "src"),
+         out_dir, json.dumps(DRYRUN_MESH_SHAPES), LM_ARCH],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def wait() -> dict:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_MESH_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"dryrun: the production-mesh traces took over "
+                 f"{DRYRUN_MESH_WAIT_S} s")
+        if proc.returncode:
+            fail(f"dryrun: the production-mesh traces exited "
+                 f"{proc.returncode}: {err[-2000:]}")
+        names = {None: "h100x1", False: "pod16x16", True: "pod2x16x16"}
+        recs = {}
+        for shape, meshes in DRYRUN_MESH_SHAPES.items():
+            for mp in meshes:
+                with open(os.path.join(out_dir, names[mp],
+                                       f"{LM_ARCH}__{shape}.json")) as f:
+                    recs[(shape, mp)] = json.load(f)
+        return recs
+
+    return wait
+
+
+def phase_dryrun(torch, lm_serve: dict, lm_train: dict, mesh_dryrun):
     """``launch.dryrun.run_cell`` on three cut cells on the meta device,
     each built with the configuration the phase that ran it holds: the
     ``lm_train`` step (2 layers, float32 masters, global batch 8 in 4
@@ -5667,7 +6502,9 @@ def phase_dryrun(torch, lm_serve: dict, lm_train: dict):
     cache (40 layers, bf16 parameters).  Each reckoned peak beside the
     peak measured around that same call alone in this run (the counter
     reset just before it), and the reckoned FLOPs beside the model FLOPs;
-    a reckoned peak more than 15% from the measured one fails."""
+    a reckoned peak more than 15% from the measured one fails.  Then the
+    production-mesh traces (``start_mesh_dryrun``): a pod16x16 rank's
+    peak must be at most the one card's and its collectives recorded."""
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
@@ -5719,7 +6556,49 @@ def phase_dryrun(torch, lm_serve: dict, lm_train: dict):
         if miss is None or not miss <= DRYRUN_PEAK_TOL:
             problems.append(f"dryrun: {what} reckoned peak {reck} B against "
                             f"{measured} B measured (miss {miss})")
+    # the production mesh, per device: rank 0 of pod16x16 under the
+    # "fake" backend, beside the one card's reckoning of the same cell
+    # (traced in a process of its own while the LM phases ran)
+    mesh_rows = []
+    recs = mesh_dryrun()
+    for shape_name, meshes in DRYRUN_MESH_SHAPES.items():
+        got = {}
+        for mp in meshes:
+            rec = recs[(shape_name, mp)]
+            if not rec["ok"]:
+                problems.append(f"dryrun: {LM_ARCH} {shape_name} on "
+                                f"{rec['mesh']} failed: {rec['error']}")
+                continue
+            got[rec["mesh"]] = rec
+        pod, one = got.get("pod16x16"), got.get("h100x1")
+        if pod is None:
+            continue
+        row = {"arch": LM_ARCH, "shape": shape_name,
+               "pod16x16_peak_gib_per_device": pod["memory"][
+                   "peak_bytes_per_device"] / 2**30,
+               "pod16x16_fits": pod["memory"]["fits"],
+               "pod16x16_collectives": pod["collectives"]["n_ops"],
+               "pod16x16_wire_bytes_per_device": pod["collectives"][
+                   "total"],
+               "pod16x16_dominant": pod["roofline"]["dominant"],
+               "pod16x16_bound_s": pod["roofline"]["bound_s"],
+               "trace_s": {k: r["wall_s"] for k, r in got.items()}}
+        if one is not None:
+            row["h100x1_peak_gib"] = one["memory"][
+                "peak_bytes_per_device"] / 2**30
+            if pod["memory"]["peak_bytes_per_device"] > \
+                    one["memory"]["peak_bytes_per_device"]:
+                problems.append(f"dryrun: {shape_name}: the pod16x16 "
+                                "rank's peak is above the one card's")
+        if not pod["collectives"]["n_ops"]:
+            problems.append(f"dryrun: {shape_name} on pod16x16 issued no "
+                            "collective")
+        mesh_rows.append(row)
     emit({"phase": "dryrun", "mesh": "h100x1", "cells": rows,
+          "production_mesh": mesh_rows,
+          "note": "pod16x16 is the reference's 256-device shape reckoned "
+                  "with one H100's constants, rank 0's program traced on "
+                  "the meta device; no such machine was run",
           "phase_s": time.perf_counter() - t_phase})
     if problems:
         fail("; ".join(problems))
@@ -5878,6 +6757,8 @@ def main(argv=None) -> int:
                                                     cap, matches)
     del cap, matches
     _free(torch)
+    _, sharded_launches = phase_sharded_cells(torch, args.seed)
+    _free(torch)
     _, sjtree_launches, sjtree_by_slots = phase_sjtree(torch, args, stream)
     del stream
     _free(torch)
@@ -5905,11 +6786,12 @@ def main(argv=None) -> int:
     if DEVICE == "cuda" and torch.cuda.memory_allocated() >= 2**30:
         fail(f"{torch.cuda.memory_allocated()} bytes still allocated on the "
              "card before the LM phases")
+    mesh_dryrun = start_mesh_dryrun()
     lm_serve = phase_lm_serve(torch, args.seed)
     phase_moe_serve(torch, args.seed)
     _free(torch)
     lm_train = phase_lm_train(torch, args.seed)
-    phase_dryrun(torch, lm_serve, lm_train)
+    phase_dryrun(torch, lm_serve, lm_train, mesh_dryrun)
 
     def entry(name, source, replaces, launches, rows, timed, **extra):
         row = next(r for r in rows if r["case"] == timed)
@@ -5923,6 +6805,9 @@ def main(argv=None) -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")} for r in rows}}
 
+    # where the script's time goes: each phase's line, seconds from the start
+    emit({"phase": "timing", "phase_end_s": dict(_PHASE_END),
+          "script_s": time.perf_counter() - _T0})
     cj = "src/repro/kernels/compat_join/kernel.py"
     emit({"kernels": [
         entry("compat_join_pairs", KERNEL_SOURCES["compat_join"], f"{cj}:454",
@@ -5955,6 +6840,7 @@ def main(argv=None) -> int:
               "src/repro/kernels/embedding_bag/kernel.py:59", bag_launches,
               bags, "wide_serve_bulk", launches_path="recsys_serve",
               launches_recsys_train=train_launches["embedding_bag"],
+              launches_sharded_cells=sharded_launches["embedding_bag"],
               tolerance="rtol 1e-5, atol 1e-6; N(0,1) D = 32: rtol 1e-5 "
                         "+ 2 n 2^-24 sum|row| per element; integer D = 32: "
                         "equal"),
@@ -5967,6 +6853,7 @@ def main(argv=None) -> int:
               launches_minibatch=minibatch_launches,
               launches_gnn_train=gnn_train_launches,
               launches_embedding_bag_backward=train_launches["segment_sum"],
+              launches_sharded_cells=sharded_launches["segment_sum"],
               tolerance="bf16: rtol 1e-2 + 2 deg 2^-24 sum|msg| per element; "
                         "float32 integer messages: equal"),
     ]})

@@ -122,12 +122,16 @@ STATIC_PARAMS = frozenset({
     "shards", "group",
     # model / training configs (hashable static pytrees)
     "cfg", "ocfg", "config", "mesh", "microbatches",
+    # the models' sharding (a MeshAxes over a process-group mesh): what
+    # the reference's ``axes`` names, fixed for a built step
+    "axes",
     # where a tick runs: one device (or mesh of devices) per built tick
     "device", "devices", "dtype", "shared",
 })
-# NamedTuple fields that are structural by convention (``_View.shared``:
-# one table for every slot, decided when the tick is built).
-STATIC_ATTRS = frozenset({"shared"})
+# Attributes that are structural by convention (``_View.shared``: one
+# table for every slot, decided when the tick is built; a model's
+# ``axes``: its sharding, fixed when the cell is built).
+STATIC_ATTRS = frozenset({"shared", "axes"})
 
 _BUILDER_RE = re.compile(r"^(build|make)_")
 _IGNORE_RE = re.compile(r"#\s*analysis:\s*ignore(?:\[([A-Za-z0-9_,\s]+)\])?")

@@ -72,6 +72,18 @@ class PartitionSpec:
             return 1
         return math.prod(mesh.shape[a] for a in self.parts[dim])
 
+    def __len__(self):
+        return len(self.parts)
+
+    def __getitem__(self, i):
+        return self.parts[i]
+
+    def __eq__(self, other):
+        return isinstance(other, PartitionSpec) and self.parts == other.parts
+
+    def __hash__(self):
+        return hash(self.parts)
+
     def __repr__(self):
         return f"P{self.parts!r}"
 
@@ -130,6 +142,79 @@ class Mesh:
     def size(self) -> int:
         return self.devices.size
 
+    # ---- a process-group mesh's coordinates, axis groups and DTensor mesh
+    def coords(self) -> dict:
+        """Axis name -> this rank's index along it (ranks are laid out
+        row-major over the axes; 0 on a one-process mesh)."""
+        if self.rank is None:
+            return {a: 0 for a in self.axis_names}
+        idx = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's block along the product of ``axes``, major to
+        minor (a spec entry such as ``("pod", "data")``)."""
+        c = self.coords()
+        out = 0
+        for a in _axes(axes):
+            out = out * self.shape[a] + c[a]
+        return out
+
+    def axis_group(self, axes):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (in mesh order), its group ranks in block order;
+        None on a one-process mesh.  Every rank of the mesh creates every
+        group of an axis set at its first use (a collective: the ranks run
+        one program)."""
+        if self.group is None:
+            return None
+        axes = tuple(a for a in self.axis_names if a in _axes(axes))
+        if not hasattr(self, "_groups"):
+            self._groups = {}
+        if axes not in self._groups:
+            if axes == self.axis_names:
+                self._groups[axes] = self.group
+            else:
+                ranks = np.arange(self.size).reshape(
+                    tuple(self.shape.values()))
+                keep = [i for i, a in enumerate(self.axis_names)
+                        if a in axes]
+                rest = [i for i in range(len(self.axis_names))
+                        if i not in keep]
+                blocks = ranks.transpose(rest + keep).reshape(
+                    -1, self.axis_size(axes))
+                glob = [[self._global_rank(int(r)) for r in b]
+                        for b in blocks]
+                self._groups[axes], _ = dist.new_subgroups_by_enumeration(
+                    glob)
+        return self._groups[axes]
+
+    def _global_rank(self, r: int) -> int:
+        if self.group is dist.group.WORLD or self.group is None:
+            return r
+        return dist.get_global_rank(self.group, r)
+
+    @property
+    def device_mesh(self):
+        """The ``torch.distributed.device_mesh.DeviceMesh`` of a
+        process-group mesh, with the same axis names (specs become
+        placements on it: ``placements``); None on a one-process mesh."""
+        if self.group is None:
+            return None
+        if getattr(self, "_device_mesh", None) is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            glob = torch.tensor([self._global_rank(r)
+                                 for r in range(self.size)]).view(
+                tuple(self.shape.values()))
+            dev = "cpu" if self.device is None else self.device.type
+            self._device_mesh = DeviceMesh(dev, glob,
+                                           mesh_dim_names=self.axis_names)
+        return self._device_mesh
+
 
 def make_mesh(shape, axis_names, *, devices=None, group=None) -> Mesh:
     """A ``Mesh`` of ``shape`` over ``axis_names``.  ``devices`` lists
@@ -153,6 +238,56 @@ def make_mesh(shape, axis_names, *, devices=None, group=None) -> Mesh:
 
 def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def placements(spec: PartitionSpec, device_mesh) -> tuple:
+    """A ``PartitionSpec`` as DTensor placements on ``device_mesh`` (whose
+    dims carry the spec's axis names): ``Shard(d)`` on every mesh dim
+    that entry d names, ``Replicate()`` elsewhere.  An entry naming two
+    mesh dims (``("pod", "data")``) shards its tensor dim over both, the
+    first named the major one, as JAX's block order is: DTensor splits a
+    dim sharded on two mesh dims in mesh-dim order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * device_mesh.ndim
+    names = list(device_mesh.mesh_dim_names)
+    for d, entry in enumerate(spec.parts):
+        for a in entry or ():
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec: PartitionSpec,
+                mesh: Mesh) -> torch.Tensor:
+    """The block of the global ``x`` that ``spec`` gives this rank of
+    ``mesh``: the block JAX's ``NamedSharding`` gives the device at the
+    same mesh coordinates.  A view."""
+    for d, entry in enumerate(spec.parts):
+        if entry is None:
+            continue
+        n = mesh.axis_size(entry)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"{n} ways ({spec})")
+        c = x.shape[d] // n
+        x = x.narrow(d, mesh.axis_index(entry) * c, c)
+    return x
+
+
+def global_shape(shape, spec: PartitionSpec, mesh: Mesh) -> tuple:
+    """The global shape of a leaf whose block under ``spec`` is
+    ``shape``."""
+    out = list(shape)
+    for d, entry in enumerate(spec.parts):
+        if entry is not None:
+            out[d] *= mesh.axis_size(entry)
+    return tuple(out)
+
+
+def replicated_axes(spec: PartitionSpec, mesh: Mesh) -> tuple:
+    """The mesh axes a leaf under ``spec`` is replicated over."""
+    named = {a for entry in spec.parts for a in (entry or ())}
+    return tuple(a for a in mesh.axis_names if a not in named)
 
 
 def _state_specs(state: EngineState, axes) -> EngineState:

@@ -1,10 +1,18 @@
-"""Dry run of every (arch × shape) cell on one H100, traced on the meta
-device (the port of ``repro.launch.dryrun``).
+"""Dry run of every (arch × shape) cell, traced on the meta device (the
+port of ``repro.launch.dryrun``): on one H100 (``h100x1``), and per
+device on the production meshes ``pod16x16`` (256 ranks) and
+``pod2x16x16`` (512).
 
 A cell's arguments are meta tensors (``launch.cells``, shapes and dtypes
 without storage), and its step runs once on them: every aten op
 dispatches with no memory behind it and no card, as the reference lowers
-and compiles on virtual CPU devices.  Per cell it records
+and compiles on virtual CPU devices.  On a production mesh the cell is
+rank 0's program: this process is rank 0 of a process group of the
+mesh's size under the "fake" backend (``torch.testing._internal.
+distributed.fake_pg``), whose collectives return at once, and the cell
+is built on ``launch.mesh.make_production_mesh(group=)``: its arguments
+are rank 0's blocks and its step calls the collectives a rank calls.
+Per cell it records
 
 * ``cost.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count
   (the products, forward and backward, a recomputed layer again);
@@ -16,24 +24,27 @@ and compiles on virtual CPU devices.  Per cell it records
   peak of live bytes: each storage counted from the op that makes it
   until it is freed, the arguments throughout, in the order the
   program runs (``_Reckoner``); ``fits`` against the card's 80 GB;
-* the roofline terms of ``launch.roofline`` at one card, with no
-  collective;
+* ``collectives``: every collective the rank issues, recorded as
+  ``(kind, result_bytes, group_size)`` (``core.collectives``) and summed
+  by ``launch.roofline.collective_bytes``;
+* the roofline terms of ``launch.roofline`` at the mesh's card count;
 * ``ok``, ``error``, ``skipped`` and ``wall_s``, as the reference's: a
   failure is recorded and the sweep goes on; the exit code is 1 if a cell
   that is not skipped failed.
 
-The mesh is one card, ``h100x1``.  A kernel wrapper on meta tensors runs
-its plain version, so a cell whose path reaches a kernel on the card
-(the GNNs' segment sums, Wide&Deep's bags) is reckoned through the plain
-version's temporaries.  The reference's ``bf16_emulation_f32_bytes`` and
-``tpu_native_peak_estimate`` are XLA:CPU artefacts and are not ported;
-per-device figures for the production meshes wait for meshes of distinct
-devices.
+A kernel wrapper on meta tensors runs its plain version, so a cell whose
+path reaches a kernel on the card (the GNNs' segment sums, Wide&Deep's
+bags) is reckoned through the plain version's temporaries.  The
+reference's ``bf16_emulation_f32_bytes`` and ``tpu_native_peak_estimate``
+are XLA:CPU artefacts and are not ported.  A 256- or 512-card mesh here
+is the reference's production shape reckoned with one H100's constants,
+not a machine that was run.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch gat-cora --shape full_graph_sm
-    python -m repro_torch.launch.dryrun --all [--force]
-Results: build/dryrun/h100x1/<arch>__<shape>.json
+    python -m repro_torch.launch.dryrun --all [--multi-pod | --one-card]
+        [--force]
+Results: build/dryrun/{h100x1,pod16x16,pod2x16x16}/<arch>__<shape>.json
 """
 
 from __future__ import annotations
@@ -50,11 +61,14 @@ from torch.utils._pytree import tree_leaves
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
+import torch.distributed as dist
+
+from repro_torch.core.collectives import recording
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.cells import Cell, all_cells, build_cell, cell_leaves
 
-MESH_NAME = "h100x1"
-N_CHIPS = 1
+MESHES = {None: ("h100x1", 1), False: ("pod16x16", 256),
+          True: ("pod2x16x16", 512)}
 HBM_BYTES = 80e9
 RESULTS_DIR = os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "build", "dryrun")
@@ -118,13 +132,32 @@ def _mv_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
     return 2 * a_shape[0] * a_shape[1]
 
 
-def trace_cell(cell: Cell) -> dict:
+def fake_mesh(multi_pod: bool):
+    """The production mesh over a "fake" process group of its size, this
+    process rank 0 (an existing group of another size is replaced)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    n = MESHES[multi_pod][1]
+    if dist.is_initialized() and (dist.get_backend() != "fake"
+                                  or dist.get_world_size() != n):
+        dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    return make_production_mesh(multi_pod=multi_pod,
+                                devices=("meta",) * n,
+                                group=dist.group.WORLD)
+
+
+def trace_cell(cell: Cell, n_chips: int = 1) -> dict:
     """``cell.fn(*cell.args)`` once, counted: {"cost", "memory",
-    "collectives", "roofline"}."""
+    "collectives", "roofline"}; ``n_chips`` the mesh's card count."""
     flops = FlopCounterMode(display=False,
                             custom_mapping={torch.ops.aten.mv: _mv_flop})
     reck = _Reckoner()
-    with flops, reck:
+    with flops, reck, recording() as records:
         args_bytes = reck.hold(cell_leaves(cell))
         out = cell.fn(*cell.args)
         # what the step returns and what it was given (a module's
@@ -143,35 +176,44 @@ def trace_cell(cell: Cell) -> dict:
               "alias_size_in_bytes": alias,
               "peak_bytes_per_device": reck.peak,
               "fits": reck.peak <= HBM_BYTES}
-    coll = RL.collective_bytes([])
+    coll = RL.collective_bytes(records)
+    coll["records"] = [list(r) for r in records]
     return {"cost": cost, "memory": memory, "collectives": coll,
-            "roofline": RL.roofline_terms(cost, coll, N_CHIPS,
+            "roofline": RL.roofline_terms(cost, coll, n_chips,
                                           cell.meta.get("model_flops"))}
 
 
-def run_cell(arch_id: str, shape_name: str, *, out_dir: str = RESULTS_DIR,
-             force: bool = False, cell: Cell | None = None) -> dict:
-    """Trace one cell (``build_cell(arch_id, shape_name)``, or ``cell``,
-    a cut one) and write its record to
-    ``<out_dir>/h100x1/<arch>__<shape>.json``; an existing record is
-    read back unless ``force``."""
-    os.makedirs(os.path.join(out_dir, MESH_NAME), exist_ok=True)
-    path = os.path.join(out_dir, MESH_NAME, f"{arch_id}__{shape_name}.json")
+def run_cell(arch_id: str, shape_name: str, multi_pod: bool | None = None,
+             *, out_dir: str = RESULTS_DIR, force: bool = False,
+             cell: Cell | None = None, cell_fn=None) -> dict:
+    """Trace one cell and write its record to
+    ``<out_dir>/<mesh>/<arch>__<shape>.json``; an existing record is
+    read back unless ``force``.  ``multi_pod`` None is one card
+    (``h100x1``); False and True are rank 0 of ``pod16x16`` and
+    ``pod2x16x16`` (``fake_mesh``).  The cell is ``build_cell(arch_id,
+    shape_name[, mesh])``, or ``cell`` (a cut one, one card), or
+    ``cell_fn(mesh)`` (a cut one built on the mesh)."""
+    mesh_name, n_chips = MESHES[multi_pod]
+    os.makedirs(os.path.join(out_dir, mesh_name), exist_ok=True)
+    path = os.path.join(out_dir, mesh_name, f"{arch_id}__{shape_name}.json")
     if os.path.exists(path) and not force:
         with open(path) as f:
             return json.load(f)
 
-    rec = {"arch": arch_id, "shape": shape_name, "mesh": MESH_NAME,
-           "n_chips": N_CHIPS}
+    rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
+           "n_chips": n_chips}
     t0 = time.time()
     try:
-        if cell is None:
-            cell = build_cell(arch_id, shape_name)
+        mesh = None if multi_pod is None else fake_mesh(multi_pod)
+        if cell_fn is not None:
+            cell = cell_fn(mesh)
+        elif cell is None:
+            cell = build_cell(arch_id, shape_name, mesh)
         rec["meta"] = {k: float(v) for k, v in cell.meta.items()}
         if cell.skip_reason:
             rec["skipped"] = cell.skip_reason
             rec["extra_cell"] = True   # run anyway, marked non-required
-        rec.update(trace_cell(cell))
+        rec.update(trace_cell(cell, n_chips))
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
         rec["ok"] = False
@@ -186,7 +228,7 @@ def run_cell(arch_id: str, shape_name: str, *, out_dir: str = RESULTS_DIR,
                   f"-bound {rec['roofline']['bound_s']:.4g} s")
     else:
         status = f"FAIL ({rec['error'][:120]})"
-    print(f"[{MESH_NAME}] {arch_id} x {shape_name}: {status} "
+    print(f"[{mesh_name}] {arch_id} x {shape_name}: {status} "
           f"({rec['wall_s']}s)", flush=True)
     return rec
 
@@ -196,14 +238,19 @@ def main(*, argv=None):
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="rank 0 of pod2x16x16 (default: of pod16x16)")
+    ap.add_argument("--one-card", action="store_true",
+                    help="the one-card program (h100x1)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=RESULTS_DIR)
     args = ap.parse_args(argv)
 
+    mp = None if args.one_card else args.multi_pod
     cells = all_cells() if args.all else [(args.arch, args.shape)]
     n_fail = 0
     for arch_id, shape_name in cells:
-        rec = run_cell(arch_id, shape_name, out_dir=args.out,
+        rec = run_cell(arch_id, shape_name, mp, out_dir=args.out,
                        force=args.force)
         n_fail += 0 if rec.get("ok") or rec.get("skipped") else 1
     raise SystemExit(1 if n_fail else 0)

@@ -25,16 +25,35 @@ bfloat16 attention output past a rounding boundary far more often than
 float32 reordering does, and the decode path (P normalised before the
 product) would drift from the prefill path (after it).  In float32
 nothing runs in TF32.  The TF32 switch is set around the score products
-only (``matmul_flags``) and restored.  The reference's ``axes`` (JAX
-sharding constraints) is not ported.
+only (``matmul_flags``) and restored.
+
+Sharded (``axes`` over a process-group mesh; ``transformer`` hands each
+rank its layer's weights gathered over the FSDP axes):
+
+* training and prefill shard the query heads over ``model`` when their
+  count divides it (Megatron's head parallelism): a rank's ``wq``
+  columns and ``wo`` rows are its heads', K and V are computed for
+  every KV head (``wk``/``wv`` whole) and the rank's heads read theirs;
+  the output projection's partial sums are summed over ``model``.
+  When the heads do not divide it (40 heads on a 16-way axis) the
+  weights come whole and the attention runs on every ``model`` rank;
+* decode reads the rank's block of the cache (the batch over the data
+  axes and the positions over ``model``, or the positions over every
+  axis when the batch is smaller than the data axes): the new K/V are
+  written where their position falls in the block, each rank computes
+  its positions' partial softmax (max, sum, weighted values) and the
+  parts combine over the position axes, flash-decoding's split-KV
+  scheme, which the reference's partitioner derives from the shardings.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.collectives import all_gather, all_reduce
 from repro_torch.models.common import (
     apply_rope,
+    constrain,
     matmul_flags,
     rms_norm,
     rope_freqs,
@@ -91,8 +110,15 @@ def gqa_attention(
     causal: bool = True,
     chunk_size: int = 1024,
     window: int | None = None,   # sliding-window attention
+    axes=None,
 ):
-    """Online-softmax chunked attention; exact, O(S·chunk) memory."""
+    """Online-softmax chunked attention; exact, O(S·chunk) memory.
+
+    With ``axes``, q/k/v are head-sharded over tp (the sharded cells
+    hand each rank its heads)."""
+    q = constrain(q, axes, "dp", None, "tp", None)
+    k = constrain(k, axes, "dp", None, "tp", None)
+    v = constrain(v, axes, "dp", None, "tp", None)
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -170,12 +196,70 @@ def decode_attention(
     return _heads_out(out, s, q.dtype)
 
 
+def _sharded_decode(q, k, v, kv_cache, axes):
+    """Decode against this rank's block of the cache (see the module
+    docstring): q/k/v [B, s, H, hd] for the whole batch -> the attention
+    output [B, s, Hq, hd], every rank the same."""
+    kc, vc, length = kv_cache
+    b, s = q.shape[:2]
+    bl, sl = kc.shape[:2]
+    batch_split = bl < b
+    b0 = axes.index("dp") * bl if batch_split else 0
+    seq_axes = ("tp",) if batch_split else ("dp", "tp")
+    mesh = axes.mesh
+    phys = [a for n in seq_axes for a in (
+        (getattr(axes, n),) if isinstance(getattr(axes, n), str)
+        else getattr(axes, n))]
+    s0 = mesh.axis_index(tuple(phys)) * sl
+    seq_group = mesh.axis_group(tuple(phys))
+    q, k, v, length = (q[b0:b0 + bl], k[b0:b0 + bl], v[b0:b0 + bl],
+                       length[b0:b0 + bl])
+    # the new K/V at positions length .. length + s - 1, where this
+    # rank's block holds them
+    pos = length[:, None].long() + torch.arange(s, device=q.device)
+    mine = (pos >= s0) & (pos < s0 + sl)
+    bidx = torch.arange(bl, device=q.device)
+    for j in range(s):          # one position a row at a time: no clash
+        at = (pos[:, j] - s0).clamp(0, sl - 1)
+        keep = mine[:, j, None, None]
+        kc[bidx, at] = torch.where(keep, k[:, j].to(kc.dtype), kc[bidx, at])
+        vc[bidx, at] = torch.where(keep, v[:, j].to(vc.dtype), vc[bidx, at])
+    hkv, hd = kc.shape[2], kc.shape[3]
+    tf32 = q.dtype == torch.bfloat16
+    qf = _grouped_q(q * hd ** -0.5, hkv)       # [Bl, Hkv, rep * s, hd]
+    with matmul_flags(allow_tf32=tf32):
+        sc = torch.matmul(qf, _kv_f32(kc).transpose(-1, -2))
+    kpos = s0 + torch.arange(sl, device=q.device)
+    sc.masked_fill_((kpos[None, :] >= (length + s)[:, None])[:, None,
+                                                             None, :],
+                    NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    mx = all_reduce(m, seq_group, "max")
+    p = torch.exp(sc - mx)
+    den = all_reduce(p.sum(dim=-1, keepdim=True), seq_group)
+    acc = all_reduce(torch.matmul(p, _kv_f32(vc)), seq_group)
+    out = _heads_out(acc / den, s, q.dtype)    # [Bl, s, Hq, hd]
+    if batch_split:
+        out = all_gather(out, 0, axes.group("dp"))
+    return out
+
+
+def _kv_heads_of(k, h0: int, hq_l: int, rep: int):
+    """The KV heads that query heads ``h0 .. h0 + hq_l - 1`` read: a
+    slice when the block holds whole groups, else one per query head."""
+    if h0 % rep == 0 and hq_l % rep == 0:
+        return k[:, :, h0 // rep:(h0 + hq_l) // rep]
+    idx = torch.arange(h0, h0 + hq_l, device=k.device) // rep
+    return k.index_select(2, idx)
+
+
 def attention_block(
     x,                  # [B, S, d]
     p,                  # params dict: wq, wk, wv, wo (+ q_norm/k_norm)
     cfg,
     positions=None,
     kv_cache=None,      # (k, v, length) for decode
+    axes=None,
 ):
     """The attention block shared by the train, prefill and decode
     paths.  Projection weights hold the heads flattened into the feature
@@ -186,10 +270,16 @@ def attention_block(
     reference returns updated copies); returns ``(y, (k_cache, v_cache,
     length + S))``.  Without it, ``(y, (k, v, None))`` with the
     post-RoPE K/V, for the prefill's cache capture.
+
+    ``axes`` over a process-group mesh: ``p`` is the rank's (see the
+    module docstring); ``wq`` narrower than the heads means its heads
+    are the rank's ``model`` block.
     """
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).view(b, s, hq, hd)
+    sharded = axes is not None and axes.sharded()
+    hq_l = p["wq"].shape[-1] // hd           # this rank's query heads
+    q = (x @ p["wq"]).view(b, s, hq_l, hd)
     k = (x @ p["wk"]).view(b, s, hkv, hd)
     v = (x @ p["wv"]).view(b, s, hkv, hd)
     if cfg.qk_norm:
@@ -201,7 +291,11 @@ def attention_block(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if kv_cache is not None:
+    if kv_cache is not None and sharded:
+        kc, vc, length = kv_cache
+        out = _sharded_decode(q, k, v, kv_cache, axes)
+        new_cache = (kc, vc, length + s)
+    elif kv_cache is not None:
         kc, vc, length = kv_cache
         # write the new K/V at position `length` (decode: s == 1)
         idx = length[:, None].long() + torch.arange(s, device=x.device)
@@ -211,9 +305,18 @@ def attention_block(
         out = decode_attention(q, kc, vc, length + s)
         new_cache = (kc, vc, length + s)
     else:
-        out = gqa_attention(q, k, v, causal=True, chunk_size=cfg.attn_chunk,
-                            window=cfg.attn_window)
+        ka, va = k, v
+        if hq_l < hq:            # this rank's heads read their KV heads
+            h0 = axes.index("tp") * hq_l
+            ka = _kv_heads_of(k, h0, hq_l, hq // hkv)
+            va = _kv_heads_of(v, h0, hq_l, hq // hkv)
+        out = gqa_attention(q, ka, va, causal=True,
+                            chunk_size=cfg.attn_chunk,
+                            window=cfg.attn_window, axes=axes)
+        del ka, va
         new_cache = (k, v, None)   # post-RoPE K/V for prefill cache capture
 
-    y = out.reshape(b, s, hq * hd) @ p["wo"]
+    y = out.reshape(b, s, hq_l * hd) @ p["wo"]
+    if hq_l < hq:                # the heads' partial sums
+        y = all_reduce(y, axes.group("tp"))
     return y, new_cache

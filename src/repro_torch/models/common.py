@@ -1,12 +1,14 @@
 """Shared model building blocks (the port of ``repro.models.common``):
-norms, RoPE, parameter init, and the reference's parameter trees carried
-across.  ``MeshAxes``, ``with_sharding`` and ``constrain`` are JAX
-sharding and are not ported."""
+norms, RoPE, parameter init, the reference's parameter trees carried
+across, and the sharding helpers ``MeshAxes``, ``with_sharding`` and
+``constrain``."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+from typing import Any
 
 import numpy as np
 import torch
@@ -61,6 +63,96 @@ def apply_rope(x, cos, sin):
     s = sin[..., None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# Sharding helpers
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """Logical -> physical axis mapping for the production meshes.
+
+    ``dp``: pure data-parallel axes (batch). ``fsdp``: parameter/optimizer
+    sharding axes (ZeRO-3 style; same physical axes as dp on our meshes).
+    ``tp``: tensor/expert-parallel axis. ``dp_size``/``tp_size``: device
+    counts, needed by grouped-dispatch MoE.  ``mesh``: the port's
+    process-group mesh (``core.distributed.Mesh``) whose ranks run the
+    sharded program, None for the one-process program; it takes no part
+    in equality."""
+
+    dp: Any = ("data",)
+    fsdp: Any = ("data",)
+    tp: Any = "model"
+    dp_size: int = 1
+    tp_size: int = 1
+    _: dataclasses.KW_ONLY
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    @staticmethod
+    def for_mesh(mesh) -> "MeshAxes":
+        names = mesh.axis_names
+        tp_size = mesh.shape["model"]
+        dp_size = mesh.devices.size // tp_size
+        group_mesh = mesh if getattr(mesh, "group", None) is not None \
+            else None
+        if "pod" in names:
+            return MeshAxes(dp=("pod", "data"), fsdp=("pod", "data"),
+                            tp="model", dp_size=dp_size, tp_size=tp_size,
+                            mesh=group_mesh)
+        return MeshAxes(dp=("data",), fsdp=("data",), tp="model",
+                        dp_size=dp_size, tp_size=tp_size, mesh=group_mesh)
+
+    def sharded(self) -> bool:
+        """Whether the program runs on the ranks of a process group."""
+        return self.mesh is not None
+
+    def group(self, *logical):
+        """The process group over the physical axes of the logical axes
+        ``logical`` ("dp", "fsdp", "tp")."""
+        phys = []
+        for name in logical:
+            a = getattr(self, name)
+            phys += [a] if isinstance(a, str) else list(a)
+        return self.mesh.axis_group(tuple(phys))
+
+    def index(self, logical: str) -> int:
+        """This rank's block along the logical axis ``logical``."""
+        return self.mesh.axis_index(getattr(self, logical))
+
+
+def _spec(axes: MeshAxes, entries):
+    from repro_torch.core.distributed import PartitionSpec
+
+    return PartitionSpec(*(getattr(axes, e) if isinstance(e, str) else e
+                           for e in entries))
+
+
+def with_sharding(x, mesh, spec):
+    """``x`` (a DTensor on ``mesh``'s ``device_mesh``) redistributed to
+    ``spec``'s placements; a plain tensor is a rank's block already and
+    is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.distributed import placements
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh.device_mesh,
+                          placements(spec, mesh.device_mesh))
+
+
+def constrain(x, axes: "MeshAxes | None", *entries):
+    """Sharding constraint at a point of the program.
+
+    ``entries`` are logical-axis names ('dp'/'tp') or None per dim; no-op
+    when ``axes`` is None (single-device smoke paths) or names no
+    process-group mesh.  On one, a DTensor is redistributed to the
+    spec's placements (``with_sharding``); the sharded cells run each
+    rank's program on plain local tensors, which hold the named block
+    already."""
+    if axes is None or axes.mesh is None:
+        return x
+    return with_sharding(x, axes.mesh, _spec(axes, entries))
 
 
 @contextlib.contextmanager

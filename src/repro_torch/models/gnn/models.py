@@ -29,24 +29,30 @@ its parameters back as the reference's tree.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import all_reduce, all_reduce_
+from repro_torch.core.distributed import P
 from repro_torch.core.join import resolve_backend
 from repro_torch.core.state import resolve_device
 from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.models.common import dense_init, params_from_numpy  # noqa: F401
 from repro_torch.models.gnn.message import (
+    NodeBlocks,
     degrees,
+    edge_sum,
     gather_rows,
     gather_scatter,
     pool_graphs,
     segment_extreme,
     segment_softmax,
 )
+from repro_torch.optim.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +74,15 @@ class GNNConfig:
     n_rbf: int = 8
     cutoff: float = 5.0
     dtype: torch.dtype = torch.float32
-    # the reference's mesh_axes (JAX sharding) is not ported: a field the
-    # port adds comes after this marker
+    # distribution: shard node-dim tensors over these mesh axes (the
+    # reference's full-batch-large shapes)
+    mesh_axes: tuple | None = None
+    # a field the port adds comes after this marker
     _: dataclasses.KW_ONLY
     remat: bool = False          # recompute each layer in the backward
+    # the process-group mesh whose ranks split the edge arrays (every
+    # mesh axis, flat) and replicate the node arrays; None: one device
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def _module_params(tree: dict, device) -> nn.ParameterDict:
@@ -101,6 +112,23 @@ class _GNN(nn.Module):
                                     for lp in params["layers"])
         if "readout" in params:
             self.readout = nn.Parameter(params["readout"].to(device))
+
+    @property
+    def group(self):
+        """The process group the edges are split over (None: one
+        device)."""
+        mesh = self.cfg.mesh
+        return None if mesh is None else mesh.group
+
+    def node_blocks(self, n: int):
+        """The node blocks of an n-node graph when the config shards the
+        node-dim tensors (``mesh_axes`` on a process-group mesh: the
+        forward then returns the rank's block of the logits), else
+        None."""
+        cfg = self.cfg
+        if cfg.mesh is None or cfg.mesh_axes is None:
+            return None
+        return NodeBlocks(n, cfg.mesh.axis_group(tuple(cfg.mesh_axes)))
 
     def _layer(self, lp, keys):
         return (lp[k].to(self.cfg.dtype) for k in keys)
@@ -164,32 +192,43 @@ class GAT(_GNN):
         src, dst = g["edge_src"], g["edge_dst"]
         e_ok = (src >= 0) & (dst >= 0)
         seg = torch.where(e_ok, dst, -1)
+        nodes = self.node_blocks(x.shape[0])
+        if nodes is not None:
+            x = nodes.block(x)
         for i, lp in enumerate(self.layers):
             x = self._apply(self._gat_layer, x, lp, src, dst, e_ok, seg,
-                            i == len(self.layers) - 1)
+                            i == len(self.layers) - 1, nodes)
         return x
 
-    def _gat_layer(self, x, lp, s, t, e_ok, seg, last: bool):
-        n = x.shape[0]
+    def _gat_layer(self, x, lp, s, t, e_ok, seg, last: bool, nodes=None):
         w, a_src, a_dst = self._layer(lp, self.KEYS)
         h = torch.einsum("nf,fho->nho", x, w)                 # [N, H, O]
-        score = F.leaky_relu(
-            gather_rows(torch.einsum("nho,ho->nh", h, a_src), s,
-                        self.backend)
-            + gather_rows(torch.einsum("nho,ho->nh", h, a_dst), t,
-                          self.backend), 0.2)                   # [E, H]
+        es = torch.einsum("nho,ho->nh", h, a_src)
+        ed = torch.einsum("nho,ho->nh", h, a_dst)
+        if nodes is not None:     # the blocks' rows, for every edge
+            es, ed = nodes.whole(es), nodes.whole(ed)
+            h = nodes.whole(h.reshape(h.shape[0], -1)).view(
+                -1, *h.shape[1:])
+        n = h.shape[0]
+        score = F.leaky_relu(gather_rows(es, s, self.backend)
+                             + gather_rows(ed, t, self.backend),
+                             0.2)                               # [E, H]
+        del es, ed
         score.masked_fill_(~e_ok[:, None], float("-inf"))
-        alpha = segment_softmax(score, seg, n)
+        alpha = segment_softmax(score, seg, n, group=self.group)
         del score
         msg = gather_rows(h.view(n, -1), s, self.backend)     # a fresh gather
         msg = msg.view(-1, *h.shape[1:])                      # [E, H, O]
         msg.mul_(alpha[..., None])                # scaled in place
         del alpha
-        agg = sr.segment_sum(seg, msg.view(msg.shape[0], -1), n,
-                             self.backend)
+        msg = msg.view(msg.shape[0], -1)
+        if nodes is not None:
+            agg = nodes.scatter(sr.segment_sum(seg, msg, n, self.backend))
+        else:
+            agg = edge_sum(seg, msg, n, self.backend, group=self.group)
         del msg
-        agg = agg.view(n, h.shape[1], -1)
-        return agg.mean(1) if last else F.elu(agg.view(n, -1))
+        agg = agg.view(agg.shape[0], h.shape[1], -1)
+        return agg.mean(1) if last else F.elu(agg.view(agg.shape[0], -1))
 
 
 # --------------------------------------------------------------------- #
@@ -232,6 +271,16 @@ class GIN(_GNN):
 
     def forward(self, g: dict) -> torch.Tensor:
         x = g["x"].to(self.cfg.dtype)
+        nodes = self.node_blocks(x.shape[0])
+        if nodes is not None:
+            if "graph_ids" in g:
+                raise ValueError("node-sharded graphs are not pooled")
+            xb = nodes.block(x)
+            for i, lp in enumerate(self.layers):
+                xb = self._apply(self._gin_nodes_layer, xb, lp,
+                                 g["edge_src"], g["edge_dst"], nodes,
+                                 x if i == 0 else None)
+            return xb.to(self.readout.dtype) @ self.readout
         for lp in self.layers:
             x = self._apply(self._gin_layer, x, lp, g["edge_src"],
                             g["edge_dst"])
@@ -240,10 +289,23 @@ class GIN(_GNN):
         # the reference multiplies by the float32 readout: a float32 result
         return x.to(self.readout.dtype) @ self.readout
 
+    def _gin_nodes_layer(self, xb, lp, src, dst, nodes, x_in=None):
+        """A layer on this rank's block of nodes: the sums of every
+        rank's edges reduce-scattered onto the blocks, the rows of the
+        gather read from the blocks' all-gather (``x_in``: the first
+        layer's whole input)."""
+        w1, w2, ln, eps = self._layer(lp, self.KEYS)
+        x = nodes.whole(xb) if x_in is None else x_in
+        agg = nodes.scatter(gather_scatter(x, src, dst, nodes.n,
+                                           reduce="sum",
+                                           backend=self.backend))
+        h = torch.relu(((1.0 + eps) * xb + agg) @ w1)
+        return _norm_relu(h @ w2, ln)
+
     def _gin_layer(self, x, lp, src, dst):
         w1, w2, ln, eps = self._layer(lp, self.KEYS)
         agg = gather_scatter(x, src, dst, x.shape[0], reduce="sum",
-                             backend=self.backend)
+                             backend=self.backend, group=self.group)
         h = (1.0 + eps) * x + agg
         h = torch.relu(h @ w1)
         return _norm_relu(h @ w2, ln)
@@ -295,27 +357,51 @@ class PNA(_GNN):
         e_ok = (src >= 0) & (dst >= 0)
         pair = torch.stack([src, dst], 1).view(-1)            # [2E]
         seg = torch.where(e_ok, dst, -1)
-        deg = degrees(dst, n).to(cfg.dtype)
+        deg = degrees(dst, n, group=self.group).to(cfg.dtype)
+        nodes = self.node_blocks(n)
+        if nodes is not None:
+            deg = nodes.block(deg)
         cnt = torch.clamp(deg[:, None], min=1.0)
         logd = torch.log1p(deg)[:, None]
-        for lp in self.layers:
-            x = self._apply(self._pna_layer, x, lp, pair, seg, cnt, logd)
+        for i, lp in enumerate(self.layers):
+            if nodes is None:
+                x = self._apply(self._pna_layer, x, lp, pair, seg, cnt,
+                                logd)
+            else:
+                x = self._apply(self._pna_layer, nodes.block(x)
+                                if i == 0 else x, lp, pair, seg, cnt,
+                                logd, nodes, x if i == 0 else None)
         return x.to(self.readout.dtype) @ self.readout
 
-    def _pna_layer(self, x, lp, pair, seg, cnt, logd):
-        cfg, n = self.cfg, x.shape[0]
+    def _pna_layer(self, x, lp, pair, seg, cnt, logd, nodes=None,
+                   x_in=None):
+        """A layer; with ``nodes`` on this rank's block ``x`` of the nodes
+        (the pairs' rows read from the blocks' all-gather, or ``x_in``,
+        the first layer's whole input)."""
+        cfg = self.cfg
         pre, post, ln = self._layer(lp, self.KEYS)
-        msg = torch.relu(gather_rows(x, pair, self.backend).view(
+        xw = x if nodes is None else (nodes.whole(x) if x_in is None
+                                      else x_in)
+        n = xw.shape[0]
+        msg = torch.relu(gather_rows(xw, pair, self.backend).view(
             pair.shape[0] // 2, -1) @ pre)                    # [E, H]
-        m_mean = sr.segment_sum(seg, msg, n, self.backend) / cnt
+        del xw
+
+        def total(m):        # the segment sums of every rank's edges
+            if nodes is None:
+                return edge_sum(seg, m, n, self.backend, group=self.group)
+            return nodes.scatter(sr.segment_sum(seg, m, n, self.backend))
+
+        m_mean = total(msg) / cnt
         aggs = []
         if "mean" in cfg.aggregators:
             aggs.append(m_mean)
         for red in ("max", "min"):
             if red in cfg.aggregators:
-                aggs.append(segment_extreme(seg, msg, n, red))
+                ext = segment_extreme(seg, msg, n, red, group=self.group)
+                aggs.append(ext if nodes is None else nodes.block(ext))
         if "std" in cfg.aggregators:
-            sq = sr.segment_sum(seg, msg * msg, n, self.backend)
+            sq = total(msg * msg)
             var = torch.clamp(sq / cnt - m_mean ** 2, min=0)
             aggs.append(torch.sqrt(var + 1e-6))
         del msg
@@ -355,8 +441,22 @@ def node_classification_loss(model: _GNN, g: dict):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.bool,
                           device=labels.device)
+    nodes = None if "graph_ids" in g else model.node_blocks(
+        labels.shape[0])
+    if nodes is not None:       # the logits are this rank's block
+        labels = nodes.block(labels)
+        mask = nodes.block(mask) & nodes.valid(mask.device)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    ce = torch.where(mask, lse - ll, 0).sum() / torch.clamp(mask.sum(),
-                                                            min=1)
+    tot = torch.where(mask, lse - ll, 0).sum()
+    cnt = mask.sum()
+    if nodes is not None:       # over every rank's nodes
+        tot = all_reduce(tot, nodes.group)
+        cnt = all_reduce_(cnt.reshape(1).clone(), nodes.group)[0]
+    ce = tot / torch.clamp(cnt, min=1)
     return ce, {"ce": ce}
+
+
+def param_specs(params, axes):
+    """GNN params are tiny: replicate everywhere."""
+    return tree_map(lambda _: P(), params)

@@ -28,17 +28,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.core.join import resolve_backend
 from repro_torch.core.state import resolve_device
 from repro_torch.kernels.segment_reduce import ops as sr
 from repro_torch.models.common import dense_init
-from repro_torch.models.gnn.message import pool_graphs
+from repro_torch.models.gnn.message import NodeBlocks, edge_sum, pool_graphs
 
 PATHS = ("ss", "sv", "st", "vs", "vv", "vt_mat", "vt_outer", "tt", "tv", "ts")
 
@@ -71,10 +73,13 @@ class NequIPConfig:
     cutoff: float = 5.0
     n_species: int = 8
     radial_hidden: int = 64
-    # the reference's mesh_axes (JAX sharding) is not ported
+    mesh_axes: tuple | None = None   # shard node-dim tensors over these
     _: dataclasses.KW_ONLY
     backend: str | None = None     # segment_sum: None = device default
     remat: bool = False            # checkpoint each interaction layer
+    # the process-group mesh whose ranks split the edge arrays (every
+    # mesh axis, flat) and replicate the node arrays; None: one device
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def init(gen: torch.Generator, cfg: NequIPConfig, *, device=None) -> dict:
@@ -102,8 +107,10 @@ def init(gen: torch.Generator, cfg: NequIPConfig, *, device=None) -> dict:
             "out1": dense((c, c)), "out2": dense((c, 1))}
 
 
-def _messages(s, v, t, lp, edge_src, edge_dst, rvec, cfg):
-    """Per-edge path outputs, summed into their destinations."""
+def _messages(s, v, t, lp, edge_src, edge_dst, rvec, cfg, nodes=None):
+    """Per-edge path outputs, summed into their destinations (with
+    ``nodes``, the sums of every rank's edges on this rank's block of
+    them)."""
     e_ok = (edge_src >= 0) & (edge_dst >= 0)
     si = edge_src.clamp(min=0).long()
     r = torch.linalg.norm(rvec, dim=-1)
@@ -134,10 +141,15 @@ def _messages(s, v, t, lp, edge_src, edge_dst, rvec, cfg):
     n = s.shape[0]
     seg = torch.where(e_ok, edge_dst, -1)
 
+    group = None if cfg.mesh is None else cfg.mesh.group
+
     def agg(x):
         flat = x.reshape(x.shape[0], -1)                  # [E, C * 3^l]
-        return sr.segment_sum(seg, flat, n, cfg.backend).view(
-            (n,) + x.shape[1:])
+        if nodes is not None:
+            out = nodes.scatter(sr.segment_sum(seg, flat, n, cfg.backend))
+        else:
+            out = edge_sum(seg, flat, n, cfg.backend, group=group)
+        return out.view((out.shape[0],) + x.shape[1:])
 
     return agg(out_s), agg(out_v), agg(out_t)
 
@@ -145,14 +157,20 @@ def _messages(s, v, t, lp, edge_src, edge_dst, rvec, cfg):
 def forward(params: dict, g: dict, cfg: NequIPConfig):
     """g: species [N] int, pos [N, 3], edge_src/edge_dst [E], optional
     graph_ids/n_graphs.  Returns the per-graph energy [G] (a [1] total
-    without graph_ids)."""
+    without graph_ids).  With ``cfg.mesh_axes`` on a process-group mesh
+    the node features are this rank's block of the nodes (``message.
+    NodeBlocks``) and the energies are summed over the ranks."""
     species = torch.clamp(g["species"], 0, cfg.n_species - 1).long()
     pos = g["pos"]
     n = species.shape[0]
     c = cfg.channels
+    nodes = None
+    if cfg.mesh is not None and cfg.mesh_axes is not None:
+        nodes = NodeBlocks(n, cfg.mesh.axis_group(tuple(cfg.mesh_axes)))
+        species = nodes.block(species)
     s = params["embed"][species]                          # [N, C]
-    v = s.new_zeros((n, c, 3))
-    t = s.new_zeros((n, c, 3, 3))
+    v = s.new_zeros((s.shape[0], c, 3))
+    t = s.new_zeros((s.shape[0], c, 3, 3))
 
     src, dst = g["edge_src"], g["edge_dst"]
     e_ok = (src >= 0) & (dst >= 0)
@@ -161,7 +179,12 @@ def forward(params: dict, g: dict, cfg: NequIPConfig):
                        - pos[dst.clamp(min=0).long()], 1.0)
 
     def layer(s, v, t, lp):
-        ms, mv, mt = _messages(s, v, t, lp, src, dst, rvec, cfg)
+        if nodes is None:
+            ms, mv, mt = _messages(s, v, t, lp, src, dst, rvec, cfg)
+        else:                  # every rank's rows, for the gathers
+            ms, mv, mt = _messages(
+                nodes.whole(s), nodes.whole(v), nodes.whole(t), lp, src,
+                dst, rvec, cfg, nodes)
         # self-interaction + residual
         s_new = s + ms @ lp["w_s"]
         v_new = v + torch.einsum("nci,cd->ndi", mv, lp["w_v"])
@@ -178,6 +201,12 @@ def forward(params: dict, g: dict, cfg: NequIPConfig):
             s, v, t = layer(s, v, t, lp)
 
     e_node = F.silu(s @ params["out1"]) @ params["out2"]  # [N, 1]
+    if nodes is not None:
+        e_node = torch.where(nodes.valid(e_node.device)[:, None], e_node, 0)
+        if "graph_ids" in g:
+            return all_reduce(pool_graphs(e_node[:, 0], nodes.block(
+                g["graph_ids"]), g["n_graphs"]), nodes.group)
+        return all_reduce(e_node[:, 0].sum()[None], nodes.group)
     if "graph_ids" in g:
         return pool_graphs(e_node[:, 0], g["graph_ids"], g["n_graphs"])
     return e_node[:, 0].sum()[None]

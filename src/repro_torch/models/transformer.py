@@ -18,8 +18,25 @@ compute.  ``LM`` holds such a tree as an ``nn.Module``.
 ``serve_step`` writes the new K/V into the caller's cache tensors in
 place (the reference's scan returns new stacked caches) and returns them
 with ``length + S``.  On the card, bfloat16 products reduce in float32
-(``f32_reductions``), as the reference's do.  ``param_specs`` and
-``cache_specs`` are JAX sharding and are not ported.
+(``f32_reductions``), as the reference's do.
+
+Sharded (``axes``, a ``MeshAxes`` over a process-group mesh): every leaf
+is the rank's block under ``param_specs`` (FSDP over the data axes × TP
+over ``model``) and the tokens its data block.  Each layer's blocks are
+cast to ``cfg.dtype`` and gathered over the FSDP axes inside the layer
+(inside its recompute under remat, so a layer's whole weights live only
+while it runs; their gradient is a reduce-scatter back onto the blocks),
+and run tensor-parallel over ``model``: the query heads (when they
+divide it), the FFN's d_ff and the experts (``attention``, ``moe``); the
+vocabulary of ``lm_head`` too, so the logits are the rank's
+``P(dp, None, tp)`` block and the loss a vocabulary-parallel cross
+entropy.  ``loss_fn`` returns the global loss on every rank.  Decode
+(``serve_step(..., axes=)``) gathers each layer's weights whole, runs
+the whole batch on every rank and reads the rank's block of the cache
+(``cache_specs``, or the positions over every axis for a batch smaller
+than the data axes: the cells' serving rule).  The weights' gather is
+the port's own: the reference's decode keeps them stationary and moves
+the activations, so a decode step here moves every layer's weights.
 """
 
 from __future__ import annotations
@@ -32,9 +49,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.collectives import all_gather, all_reduce
+from repro_torch.core.distributed import P
 from repro_torch.core.state import resolve_device
 from repro_torch.models.attention import attention_block
-from repro_torch.models.common import dense_init, f32_reductions, rms_norm
+from repro_torch.models.common import (
+    constrain,
+    dense_init,
+    f32_reductions,
+    rms_norm,
+)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.optim.tree import flatten, tree_map, unflatten
 
@@ -149,16 +173,87 @@ def _cast(lp: dict, dtype) -> dict:
     return tree_map(lambda v: v.to(dtype), lp)
 
 
-def _embed(params, tokens, cfg: LMConfig):
+def _sharded(axes) -> bool:
+    return axes is not None and axes.sharded()
+
+
+def _gathered(x, spec, axes, keep_tp: bool):
+    """A leaf's block gathered over the mesh axes its ``spec`` entries
+    name: every entry, or all but ``tp``'s when ``keep_tp``."""
+    for d, entry in enumerate(spec.parts):
+        if entry is None or (keep_tp and entry == (axes.tp,)):
+            continue
+        x = all_gather(x, d, axes.mesh.axis_group(entry))
+    return x
+
+
+def _layer_weights(lp, cfg: LMConfig, axes, decode: bool = False):
+    """A layer's per-layer blocks cast to ``cfg.dtype`` and gathered for
+    the rank's compute: over the FSDP axes, and over ``model`` too for
+    ``wk``/``wv``, for the attention weights when the heads do not split
+    over ``model``, and for everything in decode."""
+    lp = _cast(lp, cfg.dtype)
+    if not _sharded(axes):
+        return lp
+    specs = param_specs(cfg, axes)["layers"]
+    heads_tp = cfg.n_heads % axes.tp_size == 0
+
+    def one(path, x, spec):
+        keep = not decode and path not in ("attn.wk", "attn.wv") and (
+            heads_tp or path not in ("attn.wq", "attn.wo"))
+        return _gathered(x, P(*spec.parts[1:]), axes, keep)
+
+    return {k: (one(k, v, specs[k]) if not isinstance(v, dict) else
+                {n: one(f"{k}.{n}", x, specs[k][n]) for n, x in v.items()})
+            for k, v in lp.items()}
+
+
+def _embed(params, tokens, cfg: LMConfig, axes=None):
     # the gather, then the cast: the reference's cast-then-gather values
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+    if not _sharded(axes):
+        return F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+    # the table's d is split over the FSDP axes: gather whichever is
+    # smaller, the table's column blocks, or every FSDP rank's tokens'
+    # rows of this rank's columns (then the rows' column blocks)
+    group, b = axes.group("fsdp"), tokens.shape[0]
+    if tokens.numel() * axes.mesh.axis_size(axes.fsdp) >= cfg.vocab:
+        table = all_gather(params["embed"].to(cfg.dtype), 1, group)
+        return F.embedding(tokens.long(), table)
+    part = F.embedding(all_gather(tokens, 0, group).long(),
+                       params["embed"]).to(cfg.dtype)
+    rows = all_gather(part, part.dim() - 1, group)
+    i = axes.index("fsdp")
+    return rows[i * b:(i + 1) * b]
 
 
-def _logits(params, x, cfg: LMConfig):
+def _head(params, cfg: LMConfig, axes=None):
+    """The output projection [d, V]: sharded, the rank's vocabulary
+    block gathered over the FSDP axes (tied: the whole table's)."""
+    if cfg.tie_embeddings:
+        head = params["embed"].to(cfg.dtype)
+        if _sharded(axes):
+            head = all_gather(head, 1, axes.group("fsdp"))
+        return head.T
+    head = params["lm_head"].to(cfg.dtype)
+    if _sharded(axes):
+        head = all_gather(head, 0, axes.group("fsdp"))
+    return head
+
+
+def _logits(params, x, cfg: LMConfig, axes=None, whole: bool = False):
+    """Sharded, the rank's vocabulary block of the logits, or (``whole``)
+    every block gathered over ``model``."""
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
-    head = (params["embed"].T if cfg.tie_embeddings
-            else params["lm_head"]).to(cfg.dtype)
-    return x @ head
+    logits = x @ _head(params, cfg, axes)
+    if not _sharded(axes):
+        return logits
+    if cfg.tie_embeddings:
+        if whole:
+            return logits
+        v_l = cfg.vocab // axes.tp_size     # the rank's vocabulary block
+        return logits[..., axes.index("tp") * v_l:][..., :v_l]
+    return all_gather(logits, logits.dim() - 1, axes.group("tp")) \
+        if whole else logits
 
 
 def _dense_ffn(x, p):
@@ -166,102 +261,220 @@ def _dense_ffn(x, p):
     return h @ p["w2"]
 
 
-def _layer(x, lp, cfg: LMConfig, kv_cache=None, positions=None):
+def _split_ffn(x, p, axes, d_ff: int):
+    """``_dense_ffn``; sharded with ``w1`` narrower than ``d_ff`` (the
+    rank's ``model`` block of d_ff), its partial sums summed over it."""
+    y = _dense_ffn(x, p)
+    if _sharded(axes) and p["w1"].shape[-1] < d_ff:
+        y = all_reduce(y, axes.group("tp"))
+    return y
+
+
+def _layer(x, lp, cfg: LMConfig, kv_cache=None, positions=None, axes=None):
     h, new_cache = attention_block(
         rms_norm(x, lp["ln1"]), lp["attn"], cfg,
-        positions=positions, kv_cache=kv_cache)
+        positions=positions, kv_cache=kv_cache, axes=axes)
     x = x + h
     xin = rms_norm(x, lp["ln2"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe:
         b, s, d = xin.shape
-        y, aux = moe_ffn(xin.reshape(b * s, d), lp["moe"], cfg)
+        y, aux = moe_ffn(xin.reshape(b * s, d), lp["moe"], cfg, axes=axes)
         y = y.view(b, s, d)
         if cfg.dense_residual:
-            y = y + _dense_ffn(xin, lp["ffn"])
+            y = y + _split_ffn(xin, lp["ffn"], axes,
+                               cfg.residual_d_ff or cfg.d_ff)
     else:
-        y = _dense_ffn(xin, lp["ffn"])
+        y = _split_ffn(xin, lp["ffn"], axes, cfg.d_ff)
     return x + y, aux, new_cache
 
 
-def _body(x, lp, cfg: LMConfig):
-    y, aux, _ = _layer(x, _cast(lp, cfg.dtype), cfg)
+def _body(x, lp, cfg: LMConfig, axes=None):
+    y, aux, _ = _layer(x, _layer_weights(lp, cfg, axes), cfg, axes=axes)
+    y = constrain(y, axes, "dp", None, None)
     return y, aux
 
 
 @f32_reductions
-def forward(params, tokens, cfg: LMConfig):
+def forward(params, tokens, cfg: LMConfig, axes=None):
     """tokens [B, S] -> (logits [B, S, V], aux loss).  Under
     ``remat="full"`` each layer is recomputed in the backward
     (``torch.utils.checkpoint``) while autograd records; the outputs are
     the same.  The recompute reads the same per-layer views (no copy of
     a stack); it runs in the backward, outside this function's
     reduction scope, so a train step holds the scope around its
-    backward too (``launch.cells.make_lm_train_step``)."""
-    x = _embed(params, tokens, cfg)
+    backward too (``launch.cells.make_lm_train_step``).
+
+    ``axes`` over a process-group mesh: ``params`` and ``tokens`` are the
+    rank's blocks; the logits are its ``P(dp, None, tp)`` block and the
+    aux loss its token group's."""
+    x = _embed(params, tokens, cfg, axes)
+    x = constrain(x, axes, "dp", None, None)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     auxs = []
     for lp in _unbind_layers(params["layers"]):
         if remat:
-            x, aux = checkpoint(_body, x, lp, cfg, use_reentrant=False)
+            x, aux = checkpoint(_body, x, lp, cfg, axes,
+                                use_reentrant=False)
         else:
-            x, aux = _body(x, lp, cfg)
+            x, aux = _body(x, lp, cfg, axes)
         auxs.append(aux)
-    return _logits(params, x, cfg), torch.stack(auxs).sum()
+    logits = constrain(_logits(params, x, cfg, axes), axes, "dp", None, "tp")
+    return logits, torch.stack(auxs).sum()
 
 
-def loss_fn(params, tokens, cfg: LMConfig):
+def _vocab_ce(logits, targets, axes):
+    """(lse, target logit) of float32 ``logits`` [..., V_local], the
+    rank's block of the vocabulary over ``model``."""
+    group = axes.group("tp")
+    v_l = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(dim=-1), group, "max")
+    lse = torch.log(all_reduce(torch.exp(logits - m[..., None]).sum(-1),
+                               group)) + m
+    local = targets - axes.index("tp") * v_l
+    mine = (local >= 0) & (local < v_l)
+    ll = torch.gather(logits, -1, local.clamp(0, v_l - 1)[..., None])[..., 0]
+    return lse, all_reduce(torch.where(mine, ll, 0), group)
+
+
+def loss_fn(params, tokens, cfg: LMConfig, axes=None):
     """Next-token cross entropy (+ router aux + z-loss) -> (loss,
-    {"ce", "aux"})."""
-    logits, aux = forward(params, tokens, cfg)
+    {"ce", "aux"}).  Sharded, every rank returns the global values (the
+    means over the data blocks)."""
+    logits, aux = forward(params, tokens, cfg, axes)
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if _sharded(axes):
+        lse, ll = _vocab_ce(logits, targets, axes)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, targets[..., None])[..., 0]
     ce = (lse - ll).mean()
     zl = cfg.z_loss * torch.mean(lse ** 2)
-    return ce + zl + aux, {"ce": ce, "aux": aux}
+    loss = ce + zl + aux
+    if _sharded(axes):
+        dp = axes.group("dp")
+        loss, ce, aux = (all_reduce(v, dp) / axes.dp_size
+                         for v in (loss, ce, aux))
+    return loss, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------- #
 # Decode path
 # --------------------------------------------------------------------- #
 @f32_reductions
-def serve_step(params, tokens, cache, cfg: LMConfig):
+def serve_step(params, tokens, cache, cfg: LMConfig, *, axes=None):
     """One decode step.
 
     tokens [B, 1]; cache = (k [L, B, S, Hkv, hd], v [...], length [B]).
     The new K/V are written into ``k`` and ``v`` in place.  Returns
     (logits [B, V], (k, v, length + 1)).
+
+    ``axes`` over a process-group mesh (a port keyword: the reference's
+    partitioner reads the shardings): ``params`` and the cache are the
+    rank's blocks; tokens, length and logits are whole on every rank.
     """
     kc, vc, length = cache
-    x = _embed(params, tokens, cfg)
+    decode = _sharded(axes)
+    x = _embed(params, tokens, cfg, axes)
     positions = length[:, None]
     for l, lp in enumerate(_unbind_layers(params["layers"])):
-        x, _, _ = _layer(x, _cast(lp, cfg.dtype), cfg,
-                         kv_cache=(kc[l], vc[l], length),
-                         positions=positions)
-    logits = _logits(params, x[:, -1:], cfg)[:, 0]
+        x, _, _ = _layer(x, _layer_weights(lp, cfg, axes, decode=decode),
+                         cfg, kv_cache=(kc[l], vc[l], length),
+                         positions=positions, axes=axes)
+    logits = _logits(params, x[:, -1:], cfg, axes, whole=True)[:, 0]
     return logits, (kc, vc, length + tokens.shape[1])
 
 
 @f32_reductions
-def prefill(params, tokens, cfg: LMConfig):
+def prefill(params, tokens, cfg: LMConfig, axes=None):
     """Serving prefill: one forward pass that captures the post-RoPE KV
     cache of every layer and returns only the last position's logits.
 
     Returns (logits [B, V], k [L, B, S, Hkv, hd], v [L, B, S, Hkv, hd]).
+    Sharded, the rank's blocks: logits ``P(dp, tp)``, the caches
+    ``P(None, dp, tp, None, None)`` (its positions' block).
     """
     b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    x = _embed(params, tokens, cfg, axes)
+    x = constrain(x, axes, "dp", None, None)
+    s_l, s0 = s, 0
+    if _sharded(axes):
+        s_l = s // axes.tp_size
+        s0 = axes.index("tp") * s_l
+    shape = (cfg.n_layers, b, s_l, cfg.n_kv_heads, cfg.head_dim)
     k_all, v_all = x.new_empty(shape), x.new_empty(shape)
     for l, lp in enumerate(_unbind_layers(params["layers"])):
-        x, _, (k, v, _) = _layer(x, _cast(lp, cfg.dtype), cfg)
-        k_all[l], v_all[l] = k, v
+        x, _, (k, v, _) = _layer(x, _layer_weights(lp, cfg, axes), cfg,
+                                 axes=axes)
+        x = constrain(x, axes, "dp", None, None)
+        k_all[l], v_all[l] = k[:, s0:s0 + s_l], v[:, s0:s0 + s_l]
         del k, v
-    logits = _logits(params, x[:, -1:], cfg)[:, 0]
+    logits = _logits(params, x[:, -1:], cfg, axes)[:, 0]
     return logits, k_all, v_all
+
+
+# --------------------------------------------------------------------- #
+# Sharding specs
+# --------------------------------------------------------------------- #
+def param_specs(cfg: LMConfig, axes) -> Any:
+    """PartitionSpec tree matching init()'s structure.
+
+    fsdp = axes.fsdp (ZeRO-3 over data axes), tp = axes.tp.
+    Layer-stacked params get a leading None for the layer dim.
+    """
+    fsdp, tp = axes.fsdp, axes.tp
+
+    def L(*s):  # layer-stacked
+        return P(None, *s)
+
+    attn = {
+        "wq": L(fsdp, tp),           # heads flattened: [d, Hq*hd]
+        "wk": L(fsdp, tp),           # [d, Hkv*hd]
+        "wv": L(fsdp, tp),
+        "wo": L(tp, fsdp),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = L(None)
+        attn["k_norm"] = L(None)
+    layer = {"ln1": L(None), "ln2": L(None), "attn": attn}
+    dense_ffn = {"w1": L(fsdp, tp), "w3": L(fsdp, tp), "w2": L(tp, fsdp)}
+    if cfg.moe:
+        if cfg.expert_shard == "expert":
+            layer["moe"] = {
+                "wg": L(fsdp, None),
+                "w1": L(tp, fsdp, None),
+                "w3": L(tp, fsdp, None),
+                "w2": L(tp, None, fsdp),
+            }
+        else:  # shard the ffn dim (few-expert models: grok)
+            layer["moe"] = {
+                "wg": L(fsdp, None),
+                "w1": L(None, fsdp, tp),
+                "w3": L(None, fsdp, tp),
+                "w2": L(None, tp, fsdp),
+            }
+        if cfg.dense_residual:
+            layer["ffn"] = dense_ffn
+    else:
+        layer["ffn"] = dense_ffn
+    specs = {
+        # vocab replicated over tp: the token gather stays local; the d
+        # axis is FSDP-sharded so the table still scales
+        "embed": P(None, fsdp),
+        "final_norm": P(None),
+        "layers": layer,
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(fsdp, tp)
+    return specs
+
+
+def cache_specs(cfg: LMConfig, axes):
+    """KV cache (k, v, length): batch over dp, seq over tp (flash-decode)."""
+    dp, tp = axes.dp, axes.tp
+    kv = P(None, dp, tp, None, None)
+    return (kv, kv, P(dp))
 
 
 # --------------------------------------------------------------------- #

@@ -6,16 +6,21 @@ step quantizes (grad + residual) to int8 with a per-tensor scale,
 all-reduces the int8 payload, dequantizes, and keeps the quantization
 error as residual for the next step.
 
-One controller: the reference's ``axis_name`` mesh axis is a leading
-axis of n per-shard values on every leaf of ``compressed_psum``'s trees
-(as ``core.distributed`` holds its shard axis); the psum is a sum over
-that axis, broadcast back to every shard.
+Two forms of ``compressed_psum``.  One controller: the reference's
+``axis_name`` mesh axis is a leading axis of n per-shard values on every
+leaf (as ``core.distributed`` holds its shard axis); the psum is a sum
+over that axis, broadcast back to every shard.  Process group
+(``group=``): each rank holds its own leaves, with no shard axis, and
+the int8 payloads sum in an ``all_reduce`` (int32, so n ranks of ±127
+never overflow), the shared scale in a max ``all_reduce``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.collectives import all_reduce_
 from repro_torch.optim.tree import flatten, flatten_up_to, unflatten
 
 
@@ -42,14 +47,21 @@ def dequantize_tree(q_tree, scale_tree):
         flatten(q_tree), flatten_up_to(q_tree, scale_tree))])
 
 
-def compressed_psum(grads, axis_name, residual=None):
+def compressed_psum(grads, axis_name, residual=None, *, group=None):
     """Error-feedback int8 psum over the shard axis (the leading axis of
     every leaf, n shards; ``axis_name`` names it, as in the reference's
     ``shard_map``).  Each shard quantizes its own values with its own
     scale and keeps its own residual; the int8 payloads sum in int32,
     the shared scale is the largest shard's, and the sum is divided by
     n.  -> (mean tree [n, ...], each shard's row the same; new residual
-    tree [n, ...])."""
+    tree [n, ...]).
+
+    With ``group`` (a ``torch.distributed`` process group: the ranks
+    along ``axis_name``) every leaf is this rank's own, without the
+    shard axis, and so are the results: (mean tree, the same on every
+    rank; this rank's new residual tree)."""
+    if group is not None:
+        return _group_psum(grads, residual, group)
     del axis_name               # one shard axis per leaf, the leading one
     flat_g = flatten(grads)
     flat_r = ([torch.zeros_like(g, dtype=torch.float32) for g in flat_g]
@@ -63,3 +75,14 @@ def compressed_psum(grads, axis_name, residual=None):
         outs.append((q_sum.float() * s_max / n).expand(g.shape))
         res.append(torch.stack([x for _, _, x in parts]))
     return unflatten(grads, outs), unflatten(grads, res)
+
+
+def _group_psum(grads, residual, group):
+    n = dist.get_world_size(group)
+    q, s, new_res = quantize_tree(grads, residual)
+    outs = []
+    for qi, si in zip(flatten(q), flatten_up_to(q, s)):
+        q_sum = all_reduce_(qi.to(torch.int32), group)
+        s_max = all_reduce_(si.reshape(1).clone(), group, "max")[0]
+        outs.append(q_sum.float() * s_max / n)
+    return unflatten(grads, outs), new_res

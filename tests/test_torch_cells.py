@@ -73,12 +73,37 @@ def test_cell_shapes_dtypes_and_meta_equal_the_reference(arch_id, shape):
 
 
 def test_a_mesh_of_more_than_one_entry_raises():
-    mesh = make_mesh((2,), ("data",), devices=("cpu",) * 2)
+    """A one-process mesh of distinct devices raises (a distinct device
+    is another process's), and a process-group mesh builds: rank 0 of a
+    2 × 2 ``("data", "model")`` mesh under the "fake" backend holds its
+    blocks of the arguments (a one-process mesh of one device builds the
+    one-card program with the shardings attached)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     with pytest.raises(NotImplementedError):
-        build_cell("gat-cora", "full_graph_sm", mesh)
+        build_cell("gat-cora", "full_graph_sm",
+                   make_mesh((2,), ("data",), devices=("cpu", "meta")))
     one = build_cell("gat-cora", "full_graph_sm",
-                     make_mesh((1,), ("data",), devices=("cpu",)))
+                     make_mesh((2,), ("data",), devices=("cpu",) * 2))
     assert one.meta == build_cell("gat-cora", "full_graph_sm").meta
+    assert one.in_shardings is not None
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), devices=("meta",) * 4,
+                         group=dist.group.WORLD)
+        cell = build_cell("wide-deep", "train_batch", mesh)
+        whole = build_cell("wide-deep", "train_batch")
+        got = cell.args[0].params()
+        want = whole.args[0].params()
+        # tables P(None, "model", None): half the rows; the MLP whole
+        assert got["tables"].shape[1] * 2 == want["tables"].shape[1]
+        assert got["mlp"][0]["w"].shape == want["mlp"][0]["w"].shape
+        assert cell.args[2]["labels"].shape[0] * 2 == \
+            whole.args[2]["labels"].shape[0]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_lm_param_counts_match_published_scale():
@@ -163,9 +188,12 @@ def test_dense_train_step_flops_equal_a_hand_count():
 
 
 def test_dry_run_main_exit_codes(tmp_path, monkeypatch):
+    # --one-card: the CLI's default, as the reference's, is rank 0 of
+    # pod16x16 under a process-wide "fake" group (tests/
+    # test_torch_dryrun_mesh.py runs that in a subprocess)
     with pytest.raises(SystemExit) as ok:
         DR.main(argv=["--arch", "wide-deep", "--shape", "retrieval_cand",
-                      "--out", str(tmp_path)])
+                      "--one-card", "--out", str(tmp_path)])
     assert ok.value.code == 0
 
     def broken(*a, **k):
@@ -174,7 +202,7 @@ def test_dry_run_main_exit_codes(tmp_path, monkeypatch):
     monkeypatch.setattr(DR, "build_cell", broken)
     with pytest.raises(SystemExit) as bad:
         DR.main(argv=["--arch", "gat-cora", "--shape", "molecule",
-                      "--out", str(tmp_path)])
+                      "--one-card", "--out", str(tmp_path)])
     assert bad.value.code == 1
     rec = json.loads((tmp_path / "h100x1" / "gat-cora__molecule.json")
                      .read_text())

@@ -1411,3 +1411,95 @@ def test_train_lm_on_card_resumes(cuda, tmp_path):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     assert want[-1][1] < want[0][1]
+
+
+def _wd_rank_and_one_process(cuda, tmp_path):
+    """A Wide&Deep train cell (the smoke configuration at batch 2048) as
+    one rank of a 1 x 1 ``("data", "model")`` process-group mesh over
+    NCCL, and as the one-process cell, from the same seed and batch."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import wide_deep
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.launch.cells import cell_for
+
+    cfg = dataclasses.replace(wide_deep.smoke_config(), wide_vocab=5000,
+                              n_wide_crosses=16)
+    arch = dataclasses.replace(get_arch("wide-deep"), config=cfg)
+    shape = dataclasses.replace(arch.shape("train_batch"), global_batch=2048)
+    batch = recsys_batch(0, 2048, cfg.n_sparse, cfg.vocab_per_field,
+                         cfg.n_dense, cfg.n_wide_crosses, seed=3)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"), devices=("cuda",),
+                     group=dist.group.WORLD)
+    cells = [cell_for(arch, shape, mesh=mesh, device="cuda"),
+             cell_for(arch, shape, device="cuda")]
+    for cell in cells:
+        with torch.no_grad():
+            for k, x in cell.args[2].items():
+                x.copy_(torch.as_tensor(batch[k]))
+    return cells
+
+
+def _wd_kernels(prof) -> dict:
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        name = e.key.split("(")[0].split("<")[0].split()[-1]
+        if e.device_type == DeviceType.CUDA and (
+                name == "eb_bag_sum" or name.startswith("sr_")):
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
+def test_wide_deep_rank_launches_the_one_process_kernels(cuda, tmp_path):
+    """One rank's Wide&Deep train step on a 1 x 1 process-group mesh
+    (NCCL) launches exactly the kernels the one-process step launches:
+    the wrappers' counts and the profiled kernels by name."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        cells = _wd_rank_and_one_process(cuda, tmp_path)
+        counts, kernels = [], []
+        for cell in cells:
+            eb_ops.embedding_bag.launches = sr_ops.segment_sum.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                cell.fn(*cell.args)
+                torch.cuda.synchronize()
+            counts.append((eb_ops.embedding_bag.launches,
+                           sr_ops.segment_sum.launches))
+            kernels.append(_wd_kernels(prof))
+    finally:
+        dist.destroy_process_group()
+    assert counts[0] == counts[1] == (1, 1)
+    assert kernels[0] == kernels[1]
+    assert kernels[0].get("eb_bag_sum") == 1
+
+
+def test_wide_deep_rank_gradients_equal_the_one_process(cuda, tmp_path):
+    """The same rank's gradients of ``bce_loss`` equal the one-process
+    cell's (float32 noise: rtol 1e-5 of each leaf's largest)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.recsys.wide_deep import bce_loss
+    from repro_torch.optim.tree import flatten
+
+    try:
+        grads = []
+        for cell in _wd_rank_and_one_process(cuda, tmp_path):
+            model, _, batch = cell.args
+            leaves = flatten(model.params())
+            loss, _ = bce_loss(model, batch)
+            grads.append(torch.autograd.grad(loss, leaves))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))

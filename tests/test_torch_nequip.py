@@ -164,7 +164,7 @@ def test_config_matches_reference_field_for_field():
     for rc, pc in ((ref_cfg.CONFIG, port_cfg.CONFIG),
                    (ref_cfg.smoke_config(), port_cfg.smoke_config())):
         for f in dataclasses.fields(pc):
-            if f.name not in ("_", "backend"):
+            if f.name not in ("_", "backend", "mesh"):
                 assert getattr(pc, f.name) == getattr(rc, f.name), f.name
     a, b = ref_cfg.ARCH, port_cfg.ARCH
     assert (b.arch_id, b.family, b.source, b.notes) == \

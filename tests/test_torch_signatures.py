@@ -420,12 +420,44 @@ def test_the_walk_reaches_the_launch_layer(rel, name):
     """Not vacuous: LM training, the cells, the dry run, the roofline and
     the small public names are shared callables the walk compares, and
     each follows the reference's positional order (``Cell``'s fields
-    after the reference's shardings and the port's ``device``,
-    ``out_dir`` and ``argv`` keyword-only)."""
+    after its shardings — the reference's ``donate`` first, a jit knob —
+    and the port's ``device``, ``out_dir`` and ``argv`` keyword-only)."""
     found = {n: (r, t) for n, r, t in shared_callables(rel)}
     assert name in found
     r, t = found[name]
     assert follows(_positional(t), _positional(r), f"{rel}.{name}")
+
+
+# the reference's sharding arguments, back in the port's positional
+# order: ``axes`` (a MeshAxes; on a process-group mesh the rank's
+# program) and ``Cell``'s two shardings
+SHARDING_SLOTS = [
+    ("models.transformer", "forward", "axes"),
+    ("models.transformer", "loss_fn", "axes"),
+    ("models.transformer", "prefill", "axes"),
+    ("models.attention", "gqa_attention", "axes"),
+    ("models.attention", "attention_block", "axes"),
+    ("models.moe", "moe_ffn", "axes"),
+    ("launch.cells", "make_lm_train_step", "axes"),
+    ("launch.cells", "Cell", "in_shardings"),
+    ("launch.cells", "Cell", "out_shardings"),
+]
+
+
+@pytest.mark.parametrize("rel,name,param", SHARDING_SLOTS,
+                         ids=[f"{r}.{n}.{p}" for r, n, p in SHARDING_SLOTS])
+def test_sharding_arguments_take_the_references_slot(rel, name, param):
+    """Each sharding argument the reference has is the port's too, in the
+    same place and kind (``gqa_attention``'s ``axes`` keyword-only in
+    both), so a call that follows the reference hands the port the same
+    mesh axes."""
+    port = inspect.signature(getattr(
+        importlib.import_module(f"repro_torch.{rel}"), name)).parameters
+    ref = inspect.signature(getattr(_import_reference(rel),
+                                    name)).parameters
+    assert list(port).index(param) == list(ref).index(param)
+    assert port[param].kind == ref[param].kind
+    assert port[param].default is ref[param].default
 
 
 def test_remat_is_keyword_only():

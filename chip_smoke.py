@@ -315,6 +315,7 @@ both parent runs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2961,6 +2962,15 @@ SC_LM_CHECK = (2, 64)
 SC_LM_RUN = (4, 2048)
 SC_LM_RUN_TOL = 1e-2       # bf16: its loss and grad norm, relative
 SC_LM_DECODE = (2, 64)     # float32 decode check: batch x cache
+# the bf16 decode at lm_serve's serving shape (decode_32k's 128 cut to
+# LM_DECODE_BATCH against its whole cache), 2 of the 40 layers
+SC_LM_DECODE_BF16 = (4, 32768)
+SC_LM_DECODE_BF16_TOL = 1e-2   # bf16 logits: relative Frobenius
+# the bf16 decode's two readings beside its bound, at its inputs: the
+# witness (both sides float32) and the control (the ranks' partial sums
+# rounded to bf16 before they are summed); the control's one-process
+# side is the bf16 case's
+SC_DECODE_WITNESS, SC_DECODE_CONTROL = "lm_decode_f32", "lm_decode_bf16p"
 SC_ROWS = 64               # sampled rows (dim -2) of a large leaf
 SC_LEAD = 4                # sampled indices of each dim before those
 SC_WHOLE = 1 << 20         # a leaf of at most this many elements: whole
@@ -3002,6 +3012,15 @@ def _sc_cells(torch):
         "lm_decode": (lm32, dc.replace(
             lm32.shape("decode_32k"), global_batch=SC_LM_DECODE[0],
             seq_len=SC_LM_DECODE[1])),
+        "lm_decode_bf16": (lm, dc.replace(
+            lm.shape("decode_32k"), global_batch=SC_LM_DECODE_BF16[0],
+            seq_len=SC_LM_DECODE_BF16[1])),
+        SC_DECODE_WITNESS: (lm32, dc.replace(
+            lm32.shape("decode_32k"), global_batch=SC_LM_DECODE_BF16[0],
+            seq_len=SC_LM_DECODE_BF16[1])),
+        SC_DECODE_CONTROL: (lm, dc.replace(
+            lm.shape("decode_32k"), global_batch=SC_LM_DECODE_BF16[0],
+            seq_len=SC_LM_DECODE_BF16[1])),
         "lm_run": (lm, dc.replace(
             lm.shape("train_4k"), global_batch=SC_LM_RUN[0],
             seq_len=SC_LM_RUN[1], microbatches=1)),
@@ -3056,6 +3075,10 @@ def _sc_data(torch, seed: int) -> dict:
         rows.update(np.setdiff1d(rng.integers(
             0, CONFIG.vocab_per_field, 8 * WD_SAMPLE_UNTOUCHED),
             used)[:WD_SAMPLE_UNTOUCHED].tolist())
+    decode_bf16 = (tokens(SC_LM_DECODE_BF16[0], 1), seed + 11,
+                   rng.integers(SC_LM_DECODE_BF16[1] // 2,
+                                SC_LM_DECODE_BF16[1] - 1,
+                                SC_LM_DECODE_BF16[0]).astype(np.int32))
     return {
         "wd_train": train, "wd_serve": batch(SC_WD_SERVE, 1),
         "wd_rows": sorted(rows), "gin_cora": cora, "gat_cora": cora,
@@ -3065,6 +3088,11 @@ def _sc_data(torch, seed: int) -> dict:
                       rng.standard_normal(kv).astype(np.float32),
                       rng.standard_normal(kv).astype(np.float32),
                       rng.integers(s // 2, s - 1, b).astype(np.int32)),
+        # the 32,768-position caches are drawn on the card from this
+        # seed by every process alike (``_sc_cache``), not pickled; the
+        # witness and the control read the same
+        "lm_decode_bf16": decode_bf16, SC_DECODE_WITNESS: decode_bf16,
+        SC_DECODE_CONTROL: decode_bf16,
     }
 
 
@@ -3258,6 +3286,63 @@ def _sc_fill(torch, tree, specs, mesh, data) -> None:
             x.copy_(v.to(x.dtype))
 
 
+def _sc_cache(torch, shape, seed: int):
+    """The bf16 decode case's K and V caches, N(0, 1) drawn on the card
+    from ``seed`` (the same numbers in every process)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, dtype=torch.bfloat16,
+                             device=DEVICE) for _ in range(2))
+
+
+def _sc_weight_moves(torch, records, params, specs, cfg, mesh,
+                     batch) -> list:
+    """What in a sharded decode step's collectives (``records``, from
+    ``core.collectives.recording``) says it moved weights, as messages:
+    a collective other than an all-reduce or all-gather, an all-gather
+    larger than the whole logits, or a step total not under a tenth of
+    the layers' weights' whole bytes in the compute dtype (what a step
+    that gathered them takes in).  ``params`` the rank's blocks under
+    ``specs``."""
+    from repro_torch.core.distributed import global_shape
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    layers = params["layers"]
+    weights = sum(math.prod(global_shape(x.shape, sp, mesh)) * size
+                  for x, sp in zip(flatten(layers),
+                                   flatten_up_to(layers, specs["layers"])))
+    logits = batch * cfg.vocab * size
+    out = [f"a {kind} of {n} bytes over {g} ranks"
+           for kind, n, g in records
+           if kind not in ("all-reduce", "all-gather")
+           or (kind == "all-gather" and n > logits)]
+    total = sum(n for _, n, _ in records)
+    if total * 10 >= weights:
+        out.append(f"{total} recorded bytes: not under a tenth of the "
+                   f"layer weights' {weights}")
+    return out
+
+
+@contextlib.contextmanager
+def _bf16_partials():
+    """The bf16 decode's control: each partial product of the stationary
+    step rounded to bf16 before its sum over the ranks, one rounding
+    more a product than the float32 partials the step sums."""
+    from repro_torch.models import attention, common, moe, transformer
+
+    def rounded(x, w):
+        return common.partial_product(x, w).bfloat16().float()
+
+    mods = (attention, moe, transformer)
+    for m in mods:
+        m.partial_product = rounded
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.partial_product = common.partial_product
+
+
 def _sc_kernel_counts(torch, prof) -> dict:
     """Launches by kernel name of a profiler window: the embedding_bag
     kernel's and the segment_sum kernels'."""
@@ -3282,10 +3367,11 @@ def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
     device ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.collectives import all_gather
+    from repro_torch.core.collectives import all_gather, recording
     from repro_torch.core.distributed import global_shape
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.segment_reduce import ops as sr
+    from repro_torch.launch import roofline as RL
     from repro_torch.launch.cells import cell_for
     from repro_torch.optim.tree import flatten
 
@@ -3322,27 +3408,40 @@ def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
                           and len(s) == 3 else None) for s in shapes]
         steps = SC_WD_STEPS if name == "wd_train" else 1
     else:
-        if name == "lm_decode":
-            tok, kc, vc, length = data[name]
+        if name.startswith("lm_decode"):
+            if name == "lm_decode":
+                tok, kc, vc, length = data[name]
+            else:
+                tok, cache_seed, length = data[name]
+                c = arch.config
+                kc, vc = _sc_cache(torch, (c.n_layers, shape.global_batch,
+                                           shape.seq_len, c.n_kv_heads,
+                                           c.head_dim), cache_seed)
             params, t_a, k_a, v_a, l_a = cell.args
             for a, sp, v in zip((t_a, k_a, v_a, l_a), ins[1:],
                                 (tok, kc, vc, length)):
                 _sc_fill(torch, a, sp, mesh, v)
         else:
             _sc_fill(torch, cell.args[1], ins[1], mesh, data[name])
-        steps = 1
+        # a decode step writes its cache positions again: the same step
+        # repeated, its median time after the first
+        steps = 3 if name.startswith("lm_decode") else 1
     _sync(torch)
     eb.embedding_bag.launches = sr.segment_sum.launches = 0
     stage["calls"], stage["host_ms"] = 0, 0.0
-    losses, norms, samples, times = [], [], [], []
+    losses, norms, samples, times, records = [], [], [], [], []
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if DEVICE == "cuda" else [])
+    control = name == SC_DECODE_CONTROL and mesh is not None
     with profile(activities=acts) as prof:
         for k in range(steps):
             t1 = time.perf_counter()
-            res = cell.fn(*cell.args)
+            with recording() as rec, (_bf16_partials() if control
+                                      else contextlib.nullcontext()):
+                res = cell.fn(*cell.args)
             _sync(torch)
             times.append(time.perf_counter() - t1)
+            records.append(rec)
             if train:
                 _, opt, l, gn = res
                 losses.append(float(l))
@@ -3357,6 +3456,8 @@ def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
         profiled_launches=_sc_kernel_counts(torch, prof)
         if DEVICE == "cuda" else {},
         collective_calls_per_step=stage["calls"] / steps,
+        recorded_collectives_per_step=len(records[0]),
+        wire_bytes_per_step=RL.collective_bytes(records[0])["total"],
         collective_host_ms_per_step=stage["host_ms"] / steps,
         collective_device_ms_per_step=(
             sum(_collective_ms_by_name(prof, steps).values())
@@ -3364,7 +3465,13 @@ def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
     if train:
         out.update(losses=losses, grad_norms=norms, samples=samples,
                    plans=plans, shapes=shapes)
-    else:
+    elif name.startswith("lm_decode") and mesh is not None \
+            and mesh.size > 1:
+        # weight-stationary: the step's collectives carry activations
+        out["weight_moves"] = _sc_weight_moves(
+            torch, records[0], cell.args[0], ins[0], arch.config, mesh,
+            shape.global_batch)
+    if not train:
         # the logits (the first output), gathered from their blocks
         x = res[0] if isinstance(res, tuple) else res
         sp = None if mesh is None else flatten(cell.out_shardings)[0]
@@ -3374,7 +3481,7 @@ def _sc_case(torch, name: str, mesh, data, cells, stage) -> dict:
         out["outputs"] = [x.float().cpu().numpy()]
     # every tensor of the case let go before the cache is emptied
     cell = res = model = opt = batch = x = leaves = params = None
-    t_a = k_a = v_a = l_a = None
+    t_a = k_a = v_a = l_a = kc = vc = records = None
     _free(torch)
     return out
 
@@ -3471,6 +3578,23 @@ def _sc_check(name, got, want) -> tuple:
             if not grad_rel <= tol:
                 problems.append(f"{name}: gradient rel err {grad_rel} > "
                                 f"{tol}")
+    elif name in ("lm_decode_bf16", SC_DECODE_WITNESS, SC_DECODE_CONTROL):
+        a, b = (x.astype(np.float64) for x in (got["outputs"][0],
+                                               want["outputs"][0]))
+        err = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+        fields.update(output_rel_frobenius_err=err)
+        if name == SC_DECODE_CONTROL:
+            # a reading, held to nothing: does the bf16 bound tell a
+            # lower precision from the configured one?
+            fields.update(control="bf16 partial sums",
+                          over_bf16_tol=err > SC_LM_DECODE_BF16_TOL)
+        else:
+            tol = SC_LM_TOL if name == SC_DECODE_WITNESS \
+                else SC_LM_DECODE_BF16_TOL
+            fields.update(tol=tol)
+            if not err <= tol:
+                problems.append(f"{name}: logits rel Frobenius err {err} "
+                                f"> {tol}")
     else:
         a, b = got["outputs"][0], want["outputs"][0]
         err = float(np.abs(a.astype(np.float64) - b).max()) / max(
@@ -3479,6 +3603,9 @@ def _sc_check(name, got, want) -> tuple:
         fields.update(output_max_err_rel_to_max=err, tol=tol)
         if not err <= tol:
             problems.append(f"{name}: outputs rel err {err} > {tol}")
+    if got.get("weight_moves"):
+        problems.append(f"{name}: the decode step moved weights: "
+                        f"{got['weight_moves'][:3]}")
     return fields, problems
 
 
@@ -3502,6 +3629,18 @@ def phase_sharded_cells(torch, seed: int):
                       FSDP x TP step on 2 x 64 tokens (lm_train's 8 x
                       4,096 cut for time: ``SC_LM_CHECK``)
       lm_decode       its decode step, batch 2 against a 64 cache
+                      (float32), weight-stationary: every rank's
+                      step must gather no weight (``_sc_weight_moves``)
+      lm_decode_bf16  the 2 layers in bf16, lm_serve's decode shape:
+                      batch 4 against a 32,768 cache (drawn on the card
+                      from the seed), logits within 1e-2 relative
+                      Frobenius of the one-process step's; the same rule
+      lm_decode_f32   the witness: lm_decode_bf16's inputs with both
+                      sides in float32, within 1e-4 relative Frobenius
+      lm_decode_bf16p the control: lm_decode_bf16 with each partial
+                      product rounded to bf16 before its sum over the
+                      ranks (``_bf16_partials``), against the same
+                      one-process step; its reading is recorded, not held
       lm_run          the 2 layers in bf16, one FSDP x TP step on 4 x
                       2,048 tokens (lm_train's 8 x 4,096 cut for memory:
                       ``SC_LM_RUN``), loss and grad norm within 1e-2
@@ -3546,6 +3685,9 @@ def phase_sharded_cells(torch, seed: int):
         stage = {"calls": 0, "host_ms": 0.0}
         one = {}
         for name in cells:
+            if name == SC_DECODE_CONTROL:
+                one[name] = one["lm_decode_bf16"]
+                continue
             one[name] = _sc_case(torch, name, None, data, cells, stage)
             if "samples" in one[name]:
                 one[name]["samples"] = [
@@ -3607,6 +3749,9 @@ def phase_sharded_cells(torch, seed: int):
                            data["nequip_molecule"]["edge_src"])),
                        "lm_check": ("tokens", np.prod(SC_LM_CHECK)),
                        "lm_decode": ("tokens", SC_LM_DECODE[0]),
+                       "lm_decode_bf16": ("tokens", SC_LM_DECODE_BF16[0]),
+                       SC_DECODE_WITNESS: ("tokens", SC_LM_DECODE_BF16[0]),
+                       SC_DECODE_CONTROL: ("tokens", SC_LM_DECODE_BF16[0]),
                        "lm_run": ("tokens", np.prod(SC_LM_RUN))}[name]
             t_rank = [_pctl(p["step_s"][1:] or p["step_s"], .5) for p in per]
             t_one = _pctl(want["step_s"][1:] or want["step_s"], .5)
@@ -3623,6 +3768,10 @@ def phase_sharded_cells(torch, seed: int):
                 "one_process_launches": want["launches"],
                 "collective_calls_per_step":
                     per[0]["collective_calls_per_step"],
+                "recorded_collectives_per_step":
+                    per[0]["recorded_collectives_per_step"],
+                "wire_bytes_per_step": per[0]["wire_bytes_per_step"],
+                "first_step_s": [p["step_s"][0] for p in per],
                 "collective_host_ms_per_step": [
                     p["collective_host_ms_per_step"] for p in per],
                 "collective_device_ms_per_step": [
@@ -5394,6 +5543,33 @@ def _train_case(torch, what, make, loss, g, rel_tol, steps, launches_per,
     return fields, t_med, problems
 
 
+def _minibatch_graph(torch, g, seed: int):
+    """The sampler's subgraph of the products graph ``g`` (minibatch_lg's
+    cut, as minibatch_infer's) on the card: (graph dict, real nodes)."""
+    import numpy as np
+
+    from repro_torch.models.gnn.sampler import CSRGraph, sample_subgraph
+
+    n = g["x"].shape[0]
+    src = g["edge_src"].cpu().numpy()
+    dst = g["edge_dst"].cpu().numpy()
+    csr = CSRGraph(n, src, dst)
+    del src, dst
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(n, MINIBATCH_SEEDS, replace=False)
+    sub = sample_subgraph(csr, seeds, MINIBATCH_FANOUTS, rng)
+    del csr
+    nodes = torch.as_tensor(sub["nodes"], device=DEVICE).long()
+    sg = {"x": torch.where((nodes >= 0)[:, None], g["x"][nodes.clamp(min=0)],
+                           0),
+          "edge_src": torch.as_tensor(sub["edge_src"], device=DEVICE),
+          "edge_dst": torch.as_tensor(sub["edge_dst"], device=DEVICE),
+          "labels": torch.where(nodes >= 0, g["labels"][nodes.clamp(min=0)],
+                                0),
+          "label_mask": nodes >= 0}
+    return sg, int((sub["nodes"] >= 0).sum())
+
+
 def phase_gnn_train(torch, seed: int, g, graph_info):
     """The GNN zoo's train steps on the card (``make_gnn_train_step``,
     AdamW fp32 as the reference's GNN cells, lr 1e-3), each held to the
@@ -5451,7 +5627,6 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     from repro_torch.models.gnn import nequip as nq
     from repro_torch.models.gnn.models import GAT, GIN, PNA, \
         node_classification_loss
-    from repro_torch.models.gnn.sampler import CSRGraph, sample_subgraph
 
     def gnn(cls, cfg):
         def make(backend):
@@ -5505,23 +5680,7 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
 
     # GAT and PNA at minibatch_lg on the sampler's subgraph (remat: the
     # forward's sums again in the backward)
-    src = g["edge_src"].cpu().numpy()
-    dst = g["edge_dst"].cpu().numpy()
-    csr = CSRGraph(n, src, dst)
-    del src, dst
-    rng = np.random.default_rng(seed)
-    seeds = rng.choice(n, MINIBATCH_SEEDS, replace=False)
-    sub = sample_subgraph(csr, seeds, MINIBATCH_FANOUTS, rng)
-    del csr
-    nodes = torch.as_tensor(sub["nodes"], device=DEVICE).long()
-    sg = {"x": torch.where((nodes >= 0)[:, None], g["x"][nodes.clamp(min=0)],
-                           0),
-          "edge_src": torch.as_tensor(sub["edge_src"], device=DEVICE),
-          "edge_dst": torch.as_tensor(sub["edge_dst"], device=DEVICE),
-          "labels": torch.where(nodes >= 0, g["labels"][nodes.clamp(min=0)],
-                                0),
-          "label_mask": nodes >= 0}
-    n_sub = int((sub["nodes"] >= 0).sum())
+    sg, n_sub = _minibatch_graph(torch, g, seed)
     # GAT's last layer recomputes no sum: non-reentrant checkpointing
     # stops at the last tensor the backward needs, and the head mean
     # after the last sum saves none; PNA's first layer gathers the input
@@ -6580,6 +6739,7 @@ def phase_dryrun(torch, lm_serve: dict, lm_train: dict, mesh_dryrun):
                "pod16x16_collectives": pod["collectives"]["n_ops"],
                "pod16x16_wire_bytes_per_device": pod["collectives"][
                    "total"],
+               "pod16x16_flops_per_device": pod["cost"]["flops"],
                "pod16x16_dominant": pod["roofline"]["dominant"],
                "pod16x16_bound_s": pod["roofline"]["bound_s"],
                "trace_s": {k: r["wall_s"] for k, r in got.items()}}

@@ -353,16 +353,11 @@ def _lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh, device) -> Cell:
     # decode: one token against a seq_len cache (bf16, as the reference's)
     smax = seq
     kv = (cfg.n_layers, gb, smax, cfg.n_kv_heads, cfg.head_dim)
-    # the serving rule's layout: weights stored 2-D sharded, the
+    # the serving rule's layout: weights 2-D sharded and stationary, the
     # per-token activations replicated (tokens, length and logits carry
-    # no dp sharding); a batch smaller than the data axes puts the
-    # cache's positions over every axis instead of its batch over the
-    # data axes.  The reference keeps the weights stationary in decode
-    # and moves the activations; the port's decode step gathers every
-    # layer's weights whole on every rank each step (``transformer.
-    # _layer_weights(decode=True)``), a different program: the dry run's
-    # decode collectives and roofline are this port's, not the
-    # reference's layout's
+    # no dp sharding; the step moves only them: ``transformer.
+    # serve_step``); a batch smaller than the data axes puts the cache's
+    # positions over every axis instead of its batch over the data axes
     if mesh is not None and gb < dp_size:
         kv_spec = P(None, None, tuple(axes.dp) + (axes.tp,), None, None)
     else:

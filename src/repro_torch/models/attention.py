@@ -27,23 +27,33 @@ product) would drift from the prefill path (after it).  In float32
 nothing runs in TF32.  The TF32 switch is set around the score products
 only (``matmul_flags``) and restored.
 
-Sharded (``axes`` over a process-group mesh; ``transformer`` hands each
-rank its layer's weights gathered over the FSDP axes):
+Sharded (``axes`` over a process-group mesh):
 
-* training and prefill shard the query heads over ``model`` when their
-  count divides it (Megatron's head parallelism): a rank's ``wq``
-  columns and ``wo`` rows are its heads', K and V are computed for
-  every KV head (``wk``/``wv`` whole) and the rank's heads read theirs;
-  the output projection's partial sums are summed over ``model``.
-  When the heads do not divide it (40 heads on a 16-way axis) the
-  weights come whole and the attention runs on every ``model`` rank;
-* decode reads the rank's block of the cache (the batch over the data
-  axes and the positions over ``model``, or the positions over every
-  axis when the batch is smaller than the data axes): the new K/V are
-  written where their position falls in the block, each rank computes
-  its positions' partial softmax (max, sum, weighted values) and the
-  parts combine over the position axes, flash-decoding's split-KV
-  scheme, which the reference's partitioner derives from the shardings.
+* training and prefill (``attention_block``; ``transformer`` hands each
+  rank its layer's weights gathered over the FSDP axes) shard the query
+  heads over ``model`` in padded groups, as the reference's partitioner
+  pads them: rank ``t`` computes heads ``[t·c, min(H, (t+1)·c))``,
+  ``c = ⌈H / tp⌉`` (``head_block``; 40 heads on a 16-way axis: 3 a
+  rank, none on the last two).  When the heads divide ``model`` its
+  ``wq`` columns and ``wo`` rows are its ``model`` block; otherwise they
+  come whole and the rank slices its heads' out.  K and V are computed
+  for every KV head (``wk``/``wv`` whole) and the rank's heads read
+  theirs; the output projection's partial sums are summed over
+  ``model`` (a rank without heads adds zeros);
+* decode (``stationary_attention``) keeps every weight in its stored
+  block: the rank's FSDP block of the activations times its ``wq`` /
+  ``wk`` / ``wv`` block gives partial sums over the FSDP axes, which are
+  summed, and its ``model`` column blocks of q, k and v are gathered
+  over ``model``.  It then reads the rank's block of the cache (the
+  batch over the data axes and the positions over ``model``, or the
+  positions over every axis when the batch is smaller than the data
+  axes): the new K/V are written where their position falls in the
+  block, each rank computes its positions' partial softmax (max, sum,
+  weighted values) and the parts combine over the position axes,
+  flash-decoding's split-KV scheme, which the reference's partitioner
+  derives from the shardings.  The rank's ``model`` rows of the output
+  times its ``wo`` block are partial sums over ``model``, summed, and
+  the FSDP blocks gathered: only activations move.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from repro_torch.models.common import (
     apply_rope,
     constrain,
     matmul_flags,
+    partial_product,
     rms_norm,
     rope_freqs,
 )
@@ -199,7 +210,8 @@ def decode_attention(
 def _sharded_decode(q, k, v, kv_cache, axes):
     """Decode against this rank's block of the cache (see the module
     docstring): q/k/v [B, s, H, hd] for the whole batch -> the attention
-    output [B, s, Hq, hd], every rank the same."""
+    output [B, s, Hq, hd], every rank the same.  The softmax's sums and
+    weighted values combine in one all-reduce."""
     kc, vc, length = kv_cache
     b, s = q.shape[:2]
     bl, sl = kc.shape[:2]
@@ -236,12 +248,54 @@ def _sharded_decode(q, k, v, kv_cache, axes):
     m = sc.amax(dim=-1, keepdim=True)
     mx = all_reduce(m, seq_group, "max")
     p = torch.exp(sc - mx)
-    den = all_reduce(p.sum(dim=-1, keepdim=True), seq_group)
-    acc = all_reduce(torch.matmul(p, _kv_f32(vc)), seq_group)
-    out = _heads_out(acc / den, s, q.dtype)    # [Bl, s, Hq, hd]
+    acc = all_reduce(torch.cat([torch.matmul(p, _kv_f32(vc)),
+                                p.sum(dim=-1, keepdim=True)], -1),
+                     seq_group)
+    out = _heads_out(acc[..., :hd] / acc[..., hd:], s, q.dtype)
+    del acc                                    # out: [Bl, s, Hq, hd]
     if batch_split:
         out = all_gather(out, 0, axes.group("dp"))
     return out
+
+
+def head_block(n_heads: int, tp_size: int, index: int) -> tuple:
+    """The query heads ``[h0, h1)`` that rank ``index`` of a
+    ``tp_size``-way ``model`` axis computes: padded groups of
+    ``⌈n_heads / tp_size⌉``, the last ranks' cut short or empty (the
+    reference's partitioner pads 40 heads to 48 on a 16-way axis)."""
+    c = -(-n_heads // tp_size)
+    h0 = min(n_heads, index * c)
+    return h0, min(n_heads, h0 + c)
+
+
+def stationary_attention(x, p, cfg, kv_cache, positions, axes):
+    """The decode attention block on the rank's stored blocks (see the
+    module docstring): ``x`` [B, s, d] the same on every rank, ``p`` the
+    rank's ``wq``/``wk``/``wv`` ``[d/fsdp, ·/tp]`` and ``wo``
+    ``[Hq·hd/tp, d/fsdp]`` blocks in ``cfg.dtype``; the new K/V are
+    written into the rank's cache block.  Returns the block's output
+    [B, s, d], every rank the same."""
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xb = axes.block(x, "fsdp")
+    widths = [p[n].shape[-1] for n in ("wq", "wk", "wv")]
+    qkv = torch.cat([partial_product(xb, p[n]) for n in ("wq", "wk", "wv")],
+                    -1)
+    qkv = all_reduce(qkv, axes.group("fsdp")).to(x.dtype)
+    # every model rank's columns of q | k | v, in block order
+    qkv = all_gather(qkv, -1, axes.group("tp")).view(b, s, -1, sum(widths))
+    q, k, v = (t.reshape(b, s, -1, hd)
+               for t in qkv.split(widths, -1))
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _sharded_decode(q, k, v, kv_cache, axes).reshape(b, s, hq * hd)
+    y = partial_product(axes.block(out, "tp"), p["wo"])
+    y = all_reduce(y, axes.group("tp")).to(x.dtype)
+    return all_gather(y, -1, axes.group("fsdp"))
 
 
 def _kv_heads_of(k, h0: int, hq_l: int, rep: int):
@@ -271,15 +325,22 @@ def attention_block(
     length + S))``.  Without it, ``(y, (k, v, None))`` with the
     post-RoPE K/V, for the prefill's cache capture.
 
-    ``axes`` over a process-group mesh: ``p`` is the rank's (see the
-    module docstring); ``wq`` narrower than the heads means its heads
-    are the rank's ``model`` block.
+    ``axes`` over a process-group mesh (training and prefill): ``p`` is
+    the rank's (see the module docstring); it computes its query heads
+    ``head_block`` only, ``wq`` and ``wo`` either their ``model`` block
+    or whole.  Decode on a mesh is ``stationary_attention``.
     """
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sharded = axes is not None and axes.sharded()
-    hq_l = p["wq"].shape[-1] // hd           # this rank's query heads
-    q = (x @ p["wq"]).view(b, s, hq_l, hd)
+    wq, wo = p["wq"], p["wo"]
+    h0, h1 = 0, hq
+    if sharded:
+        h0, h1 = head_block(hq, axes.tp_size, axes.index("tp"))
+        if wq.shape[-1] == hq * hd and h1 - h0 < hq:   # whole: its heads
+            wq, wo = wq[:, h0 * hd:h1 * hd], wo[h0 * hd:h1 * hd]
+    hq_l = h1 - h0                           # this rank's query heads
+    q = (x @ wq).view(b, s, hq_l, hd)
     k = (x @ p["wk"]).view(b, s, hkv, hd)
     v = (x @ p["wv"]).view(b, s, hkv, hd)
     if cfg.qk_norm:
@@ -291,11 +352,7 @@ def attention_block(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if kv_cache is not None and sharded:
-        kc, vc, length = kv_cache
-        out = _sharded_decode(q, k, v, kv_cache, axes)
-        new_cache = (kc, vc, length + s)
-    elif kv_cache is not None:
+    if kv_cache is not None:
         kc, vc, length = kv_cache
         # write the new K/V at position `length` (decode: s == 1)
         idx = length[:, None].long() + torch.arange(s, device=x.device)
@@ -304,10 +361,15 @@ def attention_block(
         vc[bidx, idx] = v.to(vc.dtype)
         out = decode_attention(q, kc, vc, length + s)
         new_cache = (kc, vc, length + s)
+    elif hq_l == 0:
+        # a padded rank: no heads, so a zero partial; K and V reach it
+        # through empty slices, so that their weights' gradients are
+        # reduced on every rank as on the others
+        out = q + (k[:, :, :0].sum() + v[:, :, :0].sum())
+        new_cache = (k, v, None)
     else:
         ka, va = k, v
         if hq_l < hq:            # this rank's heads read their KV heads
-            h0 = axes.index("tp") * hq_l
             ka = _kv_heads_of(k, h0, hq_l, hq // hkv)
             va = _kv_heads_of(v, h0, hq_l, hq // hkv)
         out = gqa_attention(q, ka, va, causal=True,
@@ -316,7 +378,7 @@ def attention_block(
         del ka, va
         new_cache = (k, v, None)   # post-RoPE K/V for prefill cache capture
 
-    y = out.reshape(b, s, hq_l * hd) @ p["wo"]
-    if hq_l < hq:                # the heads' partial sums
+    y = out.reshape(b, s, hq_l * hd) @ wo
+    if sharded:                  # the heads' partial sums
         y = all_reduce(y, axes.group("tp"))
     return y, new_cache

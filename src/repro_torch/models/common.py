@@ -119,6 +119,33 @@ class MeshAxes:
         """This rank's block along the logical axis ``logical``."""
         return self.mesh.axis_index(getattr(self, logical))
 
+    def size(self, logical: str) -> int:
+        """The number of blocks along the logical axis ``logical``."""
+        return self.mesh.axis_size(getattr(self, logical))
+
+    def block(self, x, logical: str, dim: int = -1):
+        """This rank's block of ``x``'s ``dim`` along ``logical``."""
+        w = x.shape[dim] // self.size(logical)
+        return x.narrow(dim, self.index(logical) * w, w)
+
+
+def partial_product(x, w):
+    """``x @ w`` as float32 partial sums, to be summed over the ranks
+    that hold the other blocks of the contracted dim and cast once.
+    ``w`` is a 2-D block or a stack of them ([E, k, n], ``x`` then
+    [E, m, k]).  bfloat16 operands go into one GEMM that writes float32
+    (``out_dtype``): exact products and float32 sums, as one product of
+    the whole operands accumulates, with no float32 copy of the weight
+    block.  CPU tensors, which have no such GEMM, are upcast."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cpu":
+        return x.float() @ w.float()
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
 
 def _spec(axes: MeshAxes, entries):
     from repro_torch.core.distributed import PartitionSpec

@@ -22,21 +22,24 @@ with ``length + S``.  On the card, bfloat16 products reduce in float32
 
 Sharded (``axes``, a ``MeshAxes`` over a process-group mesh): every leaf
 is the rank's block under ``param_specs`` (FSDP over the data axes × TP
-over ``model``) and the tokens its data block.  Each layer's blocks are
-cast to ``cfg.dtype`` and gathered over the FSDP axes inside the layer
-(inside its recompute under remat, so a layer's whole weights live only
-while it runs; their gradient is a reduce-scatter back onto the blocks),
-and run tensor-parallel over ``model``: the query heads (when they
-divide it), the FFN's d_ff and the experts (``attention``, ``moe``); the
-vocabulary of ``lm_head`` too, so the logits are the rank's
-``P(dp, None, tp)`` block and the loss a vocabulary-parallel cross
-entropy.  ``loss_fn`` returns the global loss on every rank.  Decode
-(``serve_step(..., axes=)``) gathers each layer's weights whole, runs
-the whole batch on every rank and reads the rank's block of the cache
-(``cache_specs``, or the positions over every axis for a batch smaller
-than the data axes: the cells' serving rule).  The weights' gather is
-the port's own: the reference's decode keeps them stationary and moves
-the activations, so a decode step here moves every layer's weights.
+over ``model``).  Training and prefill take the tokens' data block; each
+layer's blocks are cast to ``cfg.dtype`` and gathered over the FSDP axes
+inside the layer (inside its recompute under remat, so a layer's whole
+weights live only while it runs; their gradient is a reduce-scatter
+back onto the blocks), and run tensor-parallel over ``model``: the query
+heads in padded groups, the FFN's d_ff and the experts (``attention``,
+``moe``); the vocabulary of ``lm_head`` too, so the logits are the
+rank's ``P(dp, None, tp)`` block and the loss a vocabulary-parallel
+cross entropy.  ``loss_fn`` returns the global loss on every rank.
+Decode (``serve_step(..., axes=)``) is weight-stationary, the
+reference's serving rule: every weight stays in its stored block and
+only the per-token activations move.  Each product is the rank's FSDP
+block of the (replicated) activations times its weight block, float32
+partial sums summed over the contracted dim's axes and cast once; its
+``model`` column blocks are gathered where the next step needs them
+whole, and the rank reads its block of the cache (``cache_specs``, or
+the positions over every axis for a batch smaller than the data axes:
+the cells' serving rule).
 """
 
 from __future__ import annotations
@@ -52,14 +55,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.collectives import all_gather, all_reduce
 from repro_torch.core.distributed import P
 from repro_torch.core.state import resolve_device
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import attention_block, \
+    stationary_attention
 from repro_torch.models.common import (
     constrain,
     dense_init,
     f32_reductions,
+    partial_product,
     rms_norm,
 )
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, stationary_moe
 from repro_torch.optim.tree import flatten, tree_map, unflatten
 
 
@@ -187,11 +192,12 @@ def _gathered(x, spec, axes, keep_tp: bool):
     return x
 
 
-def _layer_weights(lp, cfg: LMConfig, axes, decode: bool = False):
+def _layer_weights(lp, cfg: LMConfig, axes):
     """A layer's per-layer blocks cast to ``cfg.dtype`` and gathered for
-    the rank's compute: over the FSDP axes, and over ``model`` too for
-    ``wk``/``wv``, for the attention weights when the heads do not split
-    over ``model``, and for everything in decode."""
+    the rank's training or prefill compute: over the FSDP axes, and over
+    ``model`` too for ``wk``/``wv`` and for the attention weights when
+    the heads do not split over ``model`` (the rank then slices its
+    heads' out)."""
     lp = _cast(lp, cfg.dtype)
     if not _sharded(axes):
         return lp
@@ -199,7 +205,7 @@ def _layer_weights(lp, cfg: LMConfig, axes, decode: bool = False):
     heads_tp = cfg.n_heads % axes.tp_size == 0
 
     def one(path, x, spec):
-        keep = not decode and path not in ("attn.wk", "attn.wv") and (
+        keep = path not in ("attn.wk", "attn.wv") and (
             heads_tp or path not in ("attn.wq", "attn.wo"))
         return _gathered(x, P(*spec.parts[1:]), axes, keep)
 
@@ -240,20 +246,14 @@ def _head(params, cfg: LMConfig, axes=None):
     return head
 
 
-def _logits(params, x, cfg: LMConfig, axes=None, whole: bool = False):
-    """Sharded, the rank's vocabulary block of the logits, or (``whole``)
-    every block gathered over ``model``."""
+def _logits(params, x, cfg: LMConfig, axes=None):
+    """Sharded, the rank's vocabulary block of the logits."""
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
     logits = x @ _head(params, cfg, axes)
-    if not _sharded(axes):
+    if not _sharded(axes) or not cfg.tie_embeddings:
         return logits
-    if cfg.tie_embeddings:
-        if whole:
-            return logits
-        v_l = cfg.vocab // axes.tp_size     # the rank's vocabulary block
-        return logits[..., axes.index("tp") * v_l:][..., :v_l]
-    return all_gather(logits, logits.dim() - 1, axes.group("tp")) \
-        if whole else logits
+    v_l = cfg.vocab // axes.tp_size     # the rank's vocabulary block
+    return logits[..., axes.index("tp") * v_l:][..., :v_l]
 
 
 def _dense_ffn(x, p):
@@ -372,18 +372,79 @@ def serve_step(params, tokens, cache, cfg: LMConfig, *, axes=None):
 
     ``axes`` over a process-group mesh (a port keyword: the reference's
     partitioner reads the shardings): ``params`` and the cache are the
-    rank's blocks; tokens, length and logits are whole on every rank.
+    rank's blocks, which stay where they are (see the module docstring);
+    tokens, length and logits are whole on every rank.
     """
     kc, vc, length = cache
-    decode = _sharded(axes)
-    x = _embed(params, tokens, cfg, axes)
+    if _sharded(axes):
+        return _stationary_step(params, tokens, cache, cfg, axes)
+    x = _embed(params, tokens, cfg)
     positions = length[:, None]
     for l, lp in enumerate(_unbind_layers(params["layers"])):
-        x, _, _ = _layer(x, _layer_weights(lp, cfg, axes, decode=decode),
-                         cfg, kv_cache=(kc[l], vc[l], length),
-                         positions=positions, axes=axes)
-    logits = _logits(params, x[:, -1:], cfg, axes, whole=True)[:, 0]
+        x, _, _ = _layer(x, _cast(lp, cfg.dtype), cfg,
+                         kv_cache=(kc[l], vc[l], length),
+                         positions=positions)
+    logits = _logits(params, x[:, -1:], cfg)[:, 0]
     return logits, (kc, vc, length + tokens.shape[1])
+
+
+def _stationary_ffn(x, p, cfg: LMConfig, axes):
+    """The dense FFN of a decode step on the rank's blocks (``w1``/``w3``
+    ``[d/fsdp, d_ff/tp]``, ``w2`` ``[d_ff/tp, d/fsdp]``): its d_ff block
+    never leaves it.  ``x`` [..., d] the same on every rank; so is the
+    result."""
+    xb = axes.block(x, "fsdp")
+    a = torch.cat([partial_product(xb, p["w1"]),
+                   partial_product(xb, p["w3"])], -1)
+    a1, a3 = all_reduce(a, axes.group("fsdp")).to(x.dtype).chunk(2, -1)
+    y = partial_product(F.silu(a1) * a3, p["w2"])
+    y = all_reduce(y, axes.group("tp")).to(x.dtype)
+    return all_gather(y, -1, axes.group("fsdp"))
+
+
+def _stationary_logits(params, x, cfg: LMConfig, axes):
+    """The whole logits [B, s, V] on every rank from the head's blocks:
+    ``lm_head`` ``[d/fsdp, V/tp]`` gives the rank's vocabulary block,
+    gathered over ``model``; the tied head is the embedding table's
+    ``[V, d/fsdp]`` block."""
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype))
+    xb = axes.block(x, "fsdp")
+    head = params["embed"].to(cfg.dtype).T if cfg.tie_embeddings \
+        else params["lm_head"].to(cfg.dtype)
+    logits = all_reduce(partial_product(xb, head),
+                        axes.group("fsdp")).to(cfg.dtype)
+    if cfg.tie_embeddings:
+        return logits
+    return all_gather(logits, -1, axes.group("tp"))
+
+
+def _stationary_step(params, tokens, cache, cfg: LMConfig, axes):
+    """``serve_step`` on a process-group mesh: each layer's products on
+    the rank's stored blocks (``stationary_attention``,
+    ``_stationary_ffn``, ``stationary_moe``), the activations gathered
+    or summed between them."""
+    kc, vc, length = cache
+    b, s = tokens.shape
+    # the rank's column block of the tokens' rows, then every block
+    x = all_gather(F.embedding(tokens.long(), params["embed"]).to(cfg.dtype),
+                   -1, axes.group("fsdp"))
+    positions = length[:, None]
+    for l, lp in enumerate(_unbind_layers(params["layers"])):
+        lp = _cast(lp, cfg.dtype)
+        x = x + stationary_attention(rms_norm(x, lp["ln1"]), lp["attn"],
+                                     cfg, (kc[l], vc[l], length),
+                                     positions, axes)
+        xin = rms_norm(x, lp["ln2"])
+        if cfg.moe:
+            y = stationary_moe(xin.reshape(b * s, -1), lp["moe"], cfg,
+                               axes).view(xin.shape)
+            if cfg.dense_residual:
+                y = y + _stationary_ffn(xin, lp["ffn"], cfg, axes)
+        else:
+            y = _stationary_ffn(xin, lp["ffn"], cfg, axes)
+        x = x + y
+    logits = _stationary_logits(params, x[:, -1:], cfg, axes)[:, 0]
+    return logits, (kc, vc, length + s)
 
 
 @f32_reductions

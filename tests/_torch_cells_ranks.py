@@ -10,8 +10,11 @@ mesh (``launch.cells.cell_for(..., mesh=)``), fills its argument blocks
 from the reference's global arguments (``ref_args.npz``), checks every
 block against the reference's device block at the rank's mesh
 coordinates, runs the step ``steps`` times and gathers the outputs.
-Rank 0 writes ``port.npz``: ``{case}|out{i}`` (the global outputs) and
-``{case}|blocks`` (the number of blocks checked on every rank) and, for
+Rank 0 writes ``port.npz``: ``{case}|out{i}`` (the global outputs),
+``{case}|blocks`` (the number of blocks checked on every rank), for a
+decode ``{case}|records`` (its step's collectives, ``(KINDS index,
+result bytes, group size)``) and ``{case}|weight_bytes``
+(``layer_weight_bytes``) and, for
 ``DTENSOR_CASES``, ``{case}|dtensor``: the leaves whose DTensor block
 (``distribute_tensor`` under ``core.distributed.placements`` of the
 spec) was also checked against the reference's.  A rank that fails
@@ -19,6 +22,7 @@ fails the spawn.
 """
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -115,8 +119,24 @@ CASES = {
                        shape_kw=dict(global_batch=4, seq_len=8,
                                      microbatches=1),
                        mesh=MESH_2x2, steps=1),
+    # the MoE decodes: arctic's experts over model, grok's d_ff over
+    # model, the tokens routed as one group (the reference's decode
+    # passes no mesh axes to the MoE); and a decode on the 3-axis mesh
+    "arctic_decode": dict(arch="arctic-480b", config=LM_F32,
+                          shape="decode_32k",
+                          shape_kw=dict(global_batch=4, seq_len=16),
+                          mesh=MESH_2x2, steps=1),
+    "grok_decode": dict(arch="grok-1-314b", config=LM_F32,
+                        shape="decode_32k",
+                        shape_kw=dict(global_batch=4, seq_len=16),
+                        mesh=MESH_2x2, steps=1),
+    "qwen_decode_pod": dict(arch="qwen3-14b", config=LM_F32,
+                            shape="decode_32k",
+                            shape_kw=dict(global_batch=4, seq_len=16),
+                            mesh=MESH_POD, steps=1),
     # 3 heads on the 2-way model axis (qwen3-14b's 40 on 16): the
-    # attention weights gathered over model, the attention on every rank
+    # attention weights gathered over model, each rank its padded group
+    # of 2 heads, the last cut to 1
     "qwen_train_h3": dict(arch="qwen3-14b",
                           config=dict(LM_F32, n_heads=3, n_kv_heads=1),
                           shape="train_4k",
@@ -128,6 +148,13 @@ CASES = {
                             shape="prefill_32k",
                             shape_kw=dict(global_batch=2, seq_len=32),
                             mesh=MESH_2x2, steps=1),
+    # 1 head on the 2-way model axis: model rank 1 computes none
+    "qwen_train_h1": dict(arch="qwen3-14b",
+                          config=dict(LM_F32, n_heads=1, n_kv_heads=1),
+                          shape="train_4k",
+                          shape_kw=dict(global_batch=4, seq_len=16,
+                                        microbatches=2),
+                          mesh=MESH_2x2, steps=1),
     # the head read from the embedding table, the logits' vocabulary
     # block sliced on each model rank
     "qwen_train_tied": dict(arch="qwen3-14b",
@@ -204,11 +231,26 @@ def _main(rank: int, job: dict) -> None:
 
 
 DTENSOR_CASES = ("wd_train", "wd_train_pod", "qwen_train_pod")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")   # record codes
+
+
+def layer_weight_bytes(params, specs, cfg, mesh) -> int:
+    """The whole bytes, in the compute dtype, of the layers' weights
+    whose blocks ``params`` holds under ``specs``."""
+    from repro_torch.core.distributed import global_shape
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    layers = params["layers"]
+    return sum(math.prod(global_shape(x.shape, sp, mesh)) * size
+               for x, sp in zip(flatten(layers),
+                                flatten_up_to(layers, specs["layers"])))
 
 
 def _case(name: str, case: dict, ref, out: dict) -> None:
     from torch.distributed.tensor import distribute_tensor
 
+    from repro_torch.core.collectives import recording
     from repro_torch.core.distributed import local_block, make_mesh, \
         placements
     from repro_torch.launch.cells import cell_for, cell_leaves
@@ -244,8 +286,16 @@ def _case(name: str, case: dict, ref, out: dict) -> None:
                 out[f"{name}|dtensor"] = np.asarray(n_dtensor)
             x.copy_(block)
             n_checked += 1
-    for _ in range(case["steps"]):
-        res = cell.fn(*cell.args)
+    with recording() as records:
+        for _ in range(case["steps"]):
+            res = cell.fn(*cell.args)
+    if sh.kind == "decode":
+        # the step's collectives, and the bytes a step that gathered
+        # the layers' weights would take in
+        out[f"{name}|records"] = np.asarray(
+            [(KINDS.index(k), n, g) for k, n, g in records], np.int64)
+        out[f"{name}|weight_bytes"] = np.asarray(layer_weight_bytes(
+            cell.args[0], cell.in_shardings[0], arch.config, mesh))
     for i, (x, spec) in enumerate(zip(_out_leaves(res),
                                       flatten(cell.out_shardings))):
         if not torch.is_tensor(x):

@@ -10,10 +10,12 @@ PNA's and NequIP's ``ogb_products`` cells cut to 301 nodes (the node-dim
 tensors sharded as well as the edges; GIN's, GAT's and PNA's also with
 their bf16 activations in float32 on both sides), qwen3-14b's
 smoke configuration (vocab 512, float32) through train (2
-microbatches), prefill and decode (a batch under the data axes too),
-with 3 heads on the 2-way model axis (the attention weights gathered
-over it) and with tied embeddings, arctic-480b's (MoE in 2 groups) and
-grok-1-314b's (each expert's d_ff sharded over model).  It writes every global argument, each
+microbatches), prefill and decode (a batch under the data axes too, and
+on the 3-axis mesh), with 3 heads on the 2-way model axis (padded
+groups of 2 and 1) and 1 (a model rank without heads), and with tied
+embeddings, arctic-480b's (MoE in 2 groups; its decode's experts over
+model) and grok-1-314b's (each expert's d_ff sharded over model, in
+training and decode).  It writes every global argument, each
 device's block of it and every global output.  Then 4 gloo ranks
 (``tests/_torch_cells_ranks.py``, spawned once) build the port's cells
 on the same meshes: each rank's argument blocks must equal the
@@ -38,7 +40,11 @@ outputs, gathered, must equal the reference's within these tolerances
   a quantum);
 * logits and float32 caches within 1e-4 of the largest value; bfloat16
   caches within one bfloat16 rounding (2^-8 relative); retrieval scores
-  rtol 1e-5 and the same candidates (random scores have no ties).
+  rtol 1e-5 and the same candidates (random scores have no ties);
+* a decode step is weight-stationary: its collectives, recorded on the
+  ranks, are all-reduces and all-gathers, none larger than the whole
+  logits, and move under a tenth of the bytes of the layers' weights
+  (what a step that gathered them would take in).
 """
 
 import os
@@ -198,6 +204,15 @@ def test_rank_blocks_and_outputs_equal_the_reference(recorded, case):
         for a, b in caches:
             assert (np.abs(a - b) <= 2.0 ** -8 * np.abs(b) + 1e-6).all()
         np.testing.assert_array_equal(*length)
+        # weight-stationary: the step's collectives carry activations
+        # only, the largest the whole logits
+        records = port[f"{case}|records"]
+        assert len(records) > 0
+        gathers = records[records[:, 0] == CR.KINDS.index("all-gather")]
+        assert gathers[:, 1].max() <= r[0].nbytes
+        assert set(records[:, 0]) <= {CR.KINDS.index("all-reduce"),
+                                      CR.KINDS.index("all-gather")}
+        assert records[:, 1].sum() * 10 < port[f"{case}|weight_bytes"]
     else:                      # serve logits; prefill logits and caches
         for a, b in zip(t, r):
             np.testing.assert_allclose(a, b, rtol=0,
@@ -224,6 +239,28 @@ def test_cases_cover_the_slice():
     small = [c for c in CR.CASES.values() if c["shape"] == "decode_32k"
              and c["shape_kw"]["global_batch"] < 2]
     assert small          # the serving rule's positions over every axis
+    decodes = [c for c in CR.CASES.values() if c["shape"] == "decode_32k"]
+    # both MoE shardings and the 3-axis mesh decode too
+    assert {"arctic-480b", "grok-1-314b"} <= {c["arch"] for c in decodes}
+    assert ("pod", "data", "model") in {c["mesh"][1] for c in decodes}
+    # a model rank past the padded heads (1 head on the 2-way axis)
+    assert any(c.get("n_heads", 4) == 1 for c in cfgs)
+
+
+@pytest.mark.parametrize("n_heads,tp", [(40, 16), (3, 2), (1, 2), (48, 16),
+                                        (4, 2)])
+def test_head_blocks_are_padded_groups(n_heads, tp):
+    """Rank t of the model axis computes heads [t·c, min(H, (t+1)·c)),
+    c = ⌈H/tp⌉: at most c heads a rank, every head once."""
+    from repro_torch.models.attention import head_block
+
+    c = -(-n_heads // tp)
+    blocks = [head_block(n_heads, tp, t) for t in range(tp)]
+    assert max(h1 - h0 for h0, h1 in blocks) == c
+    assert [h for h0, h1 in blocks for h in range(h0, h1)] == \
+        list(range(n_heads))
+    if (n_heads, tp) == (40, 16):
+        assert blocks[13] == (39, 40) and blocks[14] == blocks[15] == (40, 40)
 
 
 def test_rank_module_imports_no_jax():

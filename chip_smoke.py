@@ -204,6 +204,9 @@ exit, nothing is caught and skipped):
                 same later-layer messages with uniform dst (no hubs) and
                 segment_mean's D = 1 count column, with index_add_'s
                 time beside it and each case's device time by kernel;
+                each case's bits equal to ``ref.segment_sum_ordered``
+                (the kernel's order in plain torch), to a second call
+                and to a call on an order-keeping permutation;
   gin_infer     GIN (gin-tu, bf16) inference on that graph; logits held
                 against the plain-version forward;
   gat_infer     GAT (gat-cora) at the published Cora shape in float32,
@@ -233,9 +236,15 @@ exit, nothing is caught and skipped):
                 Cora (float32), GAT and PNA on the sampler's subgraph
                 (bf16, remat; PNA in float32 too), NequIP ``mse_loss``
                 on the molecules; one step of each held to the plain
-                version's (loss, grad_norm, gradients, parameters; PNA's
-                gradients in float32 only), step time, nodes/s
-                (atoms/s), peak memory, segment_sum launches a step;
+                version's (loss, grad_norm, gradients, parameters), step
+                time, nodes/s (atoms/s), peak memory, segment_sum
+                launches a step; the bf16 PNA kernel step repeated 15
+                times from its seed, bit for bit;
+  examples      examples/torch_{gnn_node_classification,quickstart,
+                multi_query_service,cybersec_c2_detection,serve_recsys}.py
+                through their ``main`` on the card, their own assertions
+                included; the GNN example twice, the same loss bits at
+                every printed step;
   lm_serve      qwen3-14b at its full width and depth (40 layers), bf16,
                 seeded weights, through ``prefill`` and greedy
                 ``serve_step``s (after the GNN tensors are released and
@@ -294,7 +303,8 @@ rank (and of the one-process cell) of sharded_cells, each SJ-tree run,
 each mask case's entry-point call,
 recsys_serve, the wide-gradient check and the steps of recsys_train,
 gin_infer, gat_infer at Cora and at products, pna_infer, nequip_infer,
-each model of minibatch_infer, each case's timed steps of gnn_train);
+each model of minibatch_infer, each case's timed steps of gnn_train,
+each example's run);
 lm_serve, moe_serve and lm_train zero all four counters and require 0
 launches (the reference's LM path calls no Pallas kernel).  Then a
 {"kernels": [...]} line, and the last line is {"ok": true, "device": {...}}.  Without a
@@ -341,6 +351,8 @@ MAX_NEW = 8192
 BATCH = 4096
 SLOTS = 8
 REPS = 20                # timed runs per kernel case (median)
+PLAIN_REPS = 5           # timed runs of a compat or segment_sum plain
+                         # version (median): 20 took ~70 s of the script
 PROFILE_TRIES = 8        # profiler windows a check may take (see _steps)
 # Simple float32 operations (an add) per second: 67 TFLOP/s counts an FMA
 # as two, so one add per lane-cycle is 33.5e12/s.
@@ -357,8 +369,7 @@ GIN_FEAT, GIN_CLASSES = 100, 47
 GNN_FORWARDS = 3         # timed forwards of each GNN inference phase
 NEQUIP_CALLS = 5
 MINIBATCH_SEEDS, MINIBATCH_FANOUTS = 1024, (15, 10)   # minibatch_lg
-# A segment_sum case past the kernel's PRIV_TILES x TN = 3,145,728 nodes,
-# where the edge walks take their device-atomic side.
+# A segment_sum case over 4,000,000 nodes (the sort's keys past 2^21).
 SEG_WIDE_NODES = 4_000_000
 # NequIP's molecule shape (gnn_shapes "molecule": 128 molecules of 30
 # atoms and 64 directed edges)
@@ -823,7 +834,7 @@ def phase_kernels(torch, seed: int):
             fail(f"kernel case {name}: kernel != plain (max |err| {err})")
         ms = _time_ms(torch, lambda: ops.compat_join_pairs(*args), REPS)
         plain_ms = _time_ms(torch, lambda: ref.compat_join_pairs(*args),
-                            REPS)
+                            PLAIN_REPS)
         dev_ms, steps, windows = _steps(
             torch, lambda: ops.compat_join_pairs(*args),
             {"cj_count", "cj_scan", "cj_emit"}, f"kernel case {name}")
@@ -853,7 +864,8 @@ def phase_kernels(torch, seed: int):
                    if r["case"] == prefix + "level_overflow"):
             fail(f"the {prefix}level_overflow case dropped no pairs")
     emit({"phase": "kernel_cases", "kernel": "compat_join_pairs",
-          "reps": REPS, "cases": results})
+          "reps": REPS, "plain_reps": PLAIN_REPS,
+          "cases": results})
     return results, worst
 
 
@@ -918,7 +930,8 @@ def phase_masks(torch, seed: int):
             fail(f"mask case {name}: n_dropped != (set bits - max_new)+")
         del pairs
         ms = _time_ms(torch, lambda: ops.compat_mask(*args), REPS)
-        plain_ms = _time_ms(torch, lambda: ref.compat_mask(*args), REPS)
+        plain_ms = _time_ms(torch, lambda: ref.compat_mask(*args),
+                            PLAIN_REPS)
         dev_ms, steps, windows = _steps(
             torch, lambda: ops.compat_mask(*args), {"cj_mask"},
             f"mask case {name}")
@@ -941,7 +954,8 @@ def phase_masks(torch, seed: int):
         del tensors, got
         _free(torch)
     emit({"phase": "mask_cases", "kernel": "compat_mask", "reps": REPS,
-          "path_launches": launches, "cases": results})
+          "plain_reps": PLAIN_REPS, "path_launches": launches,
+          "cases": results})
     return results, launches
 
 
@@ -4499,24 +4513,29 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
     and a later layer's (E x 64, bf16), E x 64 float32 messages of small
     integers, the later layer's messages with ``dst`` drawn uniformly
     from [0, N) instead (the same work without the Pareto hubs), the
-    same messages with ``dst`` uniform over ``SEG_WIDE_NODES`` nodes
-    (more tiles than ``PRIV_TILES``: the edge walks count with device
-    atomics instead of shared-memory tile counters, the plan's other
-    side), ``segment_mean``'s count column (E x 1 float32 ones); GAT's
+    same messages with ``dst`` uniform over ``SEG_WIDE_NODES`` nodes,
+    ``segment_mean``'s count column (E x 1 float32 ones); GAT's
     layer 1 (E x 8 heads x 8, bf16) and layer 2 (E x 8 heads x 47 =
     376, bf16) and PNA's (E x 75 ReLU'd rows, bf16: 150-byte rows, the
     plan's 2-byte loads); and NequIP's l = 0/1/2 sums (32, 96, 288
     float32 columns of small integers) over the molecule batch's 8,192
     edges into 3,840 atoms.
 
-    Both versions sum in float32 in an order that the data decides (the
-    kernel's bucket order, index_add_'s atomics), and a hub row sums
-    ~10^6 messages, so two correct sums of real values differ by up to
-    the recursive-summation bound, 2 x deg x 2^-24 x (sum of |msg| into
-    the row), plus one bf16 rounding (rtol 1e-2): the bf16 cases are
-    held to that bound per element.  Integer messages (|m| <= 4, 4 x max
-    in-degree < 2^24) sum exactly in any order, so the float32 cases
-    must equal the plain version element for element.  Library
+    The kernel sums in float32 in one fixed order (its source's header:
+    each node's edges in index order, in runs of ``ref.RUN``), the plain
+    version in float64, and a hub row sums ~10^6 messages, so the two
+    differ by up to the recursive-summation bound, 2 x deg x 2^-24 x
+    (sum of |msg| into the row), plus one bf16 rounding (rtol 1e-2): the
+    bf16 cases are held to that bound per element.  Integer messages
+    (|m| <= 4, 4 x max in-degree < 2^24) sum exactly in any order, so
+    the float32 cases must equal the plain version element for element.
+    Each case also holds the kernel's bits: equal to
+    ``ref.segment_sum_ordered`` (the same order in plain torch) where its
+    float32 run sums fit beside the case (``_ordered_fits``), equal on a
+    second call, and equal after a permutation of the edges that keeps
+    each node's edges in their order (``_order_keeping_call``); a case
+    with a hub of more than ``ref.RUN`` edges and one of more than one
+    column chunk must have held the first.  Library
     yardstick: ``index_add_`` into a float32 accumulator, on float32
     messages; at GAT's layer 2 a float32 copy of the message (92 GB)
     does not fit beside it, so there ``index_add_`` sums the bf16
@@ -4571,17 +4590,31 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
         ("nequip_l0_f32", mol_n, mol_dst, mol_ints(32), None),
         ("nequip_l1_f32", mol_n, mol_dst, mol_ints(96), None),
         ("nequip_l2_f32", mol_n, mol_dst, mol_ints(288), None)]
-    results = []
+    results, ordered_held = [], set()
     for name, n, dst, make, rtol in specs:
         msg = make()
         e = msg.shape[0]
-        walk = "shared" if kernel.plan(
-            e, n, msg.shape[1], msg.element_size(),
-            msg.data_ptr() % 16).priv else "device"
-        if walk != ("device" if n == SEG_WIDE_NODES else "shared"):
-            fail(f"segment_sum case {name}: the edge walks count in {walk} "
-                 f"memory at {n} nodes")
+        plan = kernel.plan(e, n, msg.shape[1], msg.element_size(),
+                           msg.data_ptr() % 16)
         got = ops.segment_sum(dst, msg, n)
+        bits = {"repeat_equal": torch.equal(got, ops.segment_sum(dst, msg,
+                                                                 n))}
+        fits, need = _ordered_fits(torch, dst, msg, n)
+        if fits:
+            bits["ordered_equal"] = torch.equal(
+                got, ref.segment_sum_ordered(dst, msg, n))
+            deg_max = int(torch.bincount(dst[(dst >= 0) & (dst < n)].long(),
+                                         minlength=n).max())
+            if bits["ordered_equal"] and deg_max > ref.RUN:
+                ordered_held.add("hub")
+            if bits["ordered_equal"] and plan.n_cc > 1:
+                ordered_held.add("column chunks")
+        else:
+            bits["ordered_equal"] = (
+                f"skipped: its float32 run sums and node sums need {need} "
+                f"bytes beside the case, "
+                f"{torch.cuda.mem_get_info()[0]} free")
+        _free(torch)
         want = ref.segment_sum(dst, msg, n)
         _sync(torch)
         diff = (got.float() - want.float()).abs()
@@ -4597,6 +4630,9 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
         if got.dtype != msg.dtype or got.shape != want.shape or bad:
             fail(f"segment_sum case {name}: kernel != plain (max |err| "
                  f"{err}, {bad} elements out of tolerance)")
+        if not (bits["repeat_equal"] and bits["ordered_equal"] is not False):
+            fail(f"segment_sum case {name}: the kernel's bits differ from "
+                 f"its order or from its own second call: {bits}")
         del diff
         seg = torch.where((dst >= 0) & (dst < n), dst, n).long()
         wide = msg.numel() * 4 > 40e9           # no float32 copy beside it
@@ -4609,10 +4645,10 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
         lib_out = library()[:n].to(msg.dtype)
         lib_err = (_max_err(torch, lib_out, want), _rel_err(lib_out, want),
                    _rel_err(got, want))
-        del got, want, lib_out
+        del want, lib_out
         ms = _time_ms(torch, lambda: ops.segment_sum(dst, msg, n), REPS)
         plain_ms = _time_ms(torch, lambda: ref.segment_sum(dst, msg, n),
-                            REPS)
+                            PLAIN_REPS)
         library_ms = _time_ms(torch, library, REPS)
         d = msg.shape[1]
         nbytes = 4 * e + e * d * msg.element_size() \
@@ -4628,19 +4664,87 @@ def phase_segment_sum(torch, seed: int, g, max_in_degree: int):
             "bytes": nbytes, "operations": e * d, "max_abs_err": err,
             "rel_err": lib_err[2], "library_max_abs_err": lib_err[0],
             "library_rel_err": lib_err[1],
-            "tile_counters": walk, "load_bytes": kernel.plan(
-                e, n, d, msg.element_size(), msg.data_ptr() % 16).vec,
+            "radix_passes": plan.passes, "column_chunks": plan.n_cc,
+            "load_bytes": plan.vec, **bits,
             "tolerance": ("equal" if rtol is None else
                           f"rtol {rtol} + 2 deg 2^-24 sum|msg|")}
         dev_ms, by_kernel, _ = _any_profile(
             torch, lambda: ops.segment_sum(dst, msg, n), 3)
         row.update(device_ms=dev_ms, device_ms_by_kernel=by_kernel)
-        results.append(row)
-        del msg, lib_msg, seg
+        del lib_msg, seg
         _free(torch)
+        row["permutation"], same = _order_keeping_call(torch, gen, dst, msg,
+                                                       n, got)
+        row["permutation_equal"] = same
+        if not same:
+            fail(f"segment_sum case {name}: an order-keeping permutation "
+                 f"({row['permutation']}) changed the kernel's bits")
+        results.append(row)
+        del msg, got
+        _free(torch)
+    if ordered_held != {"hub", "column chunks"}:
+        fail(f"segment_sum cases: the kernel was held to its order bit for "
+             f"bit only where {sorted(ordered_held)}")
     emit({"phase": "segment_sum_cases", "kernel": "segment_sum",
-          "reps": REPS, "cases": results})
+          "reps": REPS, "plain_reps": PLAIN_REPS, "cases": results})
     return results
+
+
+def _ordered_fits(torch, dst, msg, n_nodes) -> tuple:
+    """Whether ``ref.segment_sum_ordered``'s float32 arrays (a row of D
+    for each run and each node, and a gather of at most
+    ``ref.CHUNK_ELEMS`` values) fit in the card's free memory with 4 GiB
+    to spare: (fits, bytes needed)."""
+    from repro_torch.kernels.segment_reduce import ref
+
+    ok = (dst >= 0) & (dst < n_nodes)
+    cnt = torch.bincount(dst[ok].long(), minlength=n_nodes)
+    runs = int(((cnt + ref.RUN - 1) // ref.RUN).sum())
+    d = msg.shape[1]
+    need = 4 * d * (runs + 2 * n_nodes) + 8 * ref.CHUNK_ELEMS \
+        + 96 * dst.numel()
+    return need + (4 << 30) < torch.cuda.mem_get_info()[0], need
+
+
+def _order_keeping_call(torch, gen, dst, msg, n_nodes, got) -> tuple:
+    """The kernel on a permutation of the edges that keeps each node's
+    edges in their order; (which permutation, whether its bits equal
+    ``got``).  Where a permuted copy of the message fits beside it, the
+    edges are grouped by node in a random order of the nodes; otherwise
+    (GAT's 46 GB layer 2) the even edges trade places with the next one
+    where the two go to different nodes, in place, and back after."""
+    from repro_torch.kernels.segment_reduce import ops
+
+    n = dst.numel()
+    if 2 * msg.numel() * msg.element_size() + (8 << 30) \
+            < torch.cuda.mem_get_info()[0]:
+        seg = torch.where((dst >= 0) & (dst < n_nodes), dst,
+                          n_nodes).long()
+        rank = torch.randperm(n_nodes + 1, generator=gen, device=DEVICE)
+        perm = torch.argsort(rank[seg], stable=True)
+        out = ops.segment_sum(dst[perm], msg[perm], n_nodes)
+        kind = "edges grouped by node, the nodes in a random order"
+    else:
+        even = torch.arange(0, n - 1, 2, device=DEVICE)
+        even = even[dst[even] != dst[even + 1]]
+        swapped = dst.clone()
+        swapped[even], swapped[even + 1] = dst[even + 1], dst[even]
+        rows = max(1, (1 << 28) // msg.shape[1])
+
+        def trade():
+            for lo in range(0, even.numel(), rows):
+                a = even[lo:lo + rows]
+                tmp = msg[a].clone()
+                msg[a] = msg[a + 1]
+                msg[a + 1] = tmp
+        trade()
+        out = ops.segment_sum(swapped, msg, n_nodes)
+        trade()
+        kind = (f"{even.numel()} pairs of neighbouring edges of different "
+                f"nodes traded, in place")
+    same = torch.equal(out, got)
+    del out
+    return kind, same
 
 
 def _infer(torch, model, g, forwards: int):
@@ -5189,6 +5293,8 @@ def phase_minibatch_infer(torch, seed: int, g, graph_info):
 # recsys_train / gnn_train: the train steps on the card
 # --------------------------------------------------------------------- #
 TRAIN_LR = 1e-3
+PNA_REPEATS = 15                 # the bf16 PNA kernel step, repeated
+PNA_BF16_GRADS = True            # its gradients held to 1e-2 (PERF.md §6)
 WD_TRAIN_BATCH = 65_536          # recsys_shapes train_batch
 WD_TRAIN_STEPS = 4               # timed steps after the compared one
 GNN_TRAIN_STEPS = 3
@@ -5543,6 +5649,39 @@ def _train_case(torch, what, make, loss, g, rel_tol, steps, launches_per,
     return fields, t_med, problems
 
 
+def _repeat_steps(torch, make, loss, g, reps: int) -> dict:
+    """The kernel path's step ``reps`` times, each from a fresh model of
+    the same seed and a zero AdamW state: every loss, grad_norm, gradient
+    (each leaf's first moment after the step) and parameter must equal
+    the first repeat's bit for bit.  Returns the repeats, whether all
+    were equal and which values differed (flatten order: the moments,
+    then the parameters, then the loss and grad_norm)."""
+    from repro_torch.launch.cells import make_gnn_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.tree import flatten, flatten_up_to
+
+    ocfg = AdamWConfig(state_mode="fp32")
+    step = make_gnn_train_step(None, loss, ocfg, TRAIN_LR)
+    first, differ = None, set()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model = make(None)
+        _, opt, l, gn = step(model, adamw_init(model.params(), ocfg), g)
+        params = model.params()
+        vals = [st["m"] for st in flatten_up_to(params, opt["leaves"])] \
+            + [x.detach() for x in flatten(params)] + [l, gn]
+        if first is None:
+            first = [v.clone() for v in vals]
+        else:
+            differ.update(i for i, (a, b) in enumerate(zip(first, vals))
+                          if not torch.equal(a, b))
+        del model, opt, params, vals
+    _free(torch)
+    return {"repeats": reps, "bit_equal": not differ,
+            "differing": sorted(differ), "values": len(first),
+            "seconds": time.perf_counter() - t0}
+
+
 def _minibatch_graph(torch, g, seed: int):
     """The sampler's subgraph of the products graph ``g`` (minibatch_lg's
     cut, as minibatch_infer's) on the card: (graph dict, real nodes)."""
@@ -5593,20 +5732,19 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
                     sampler's subgraph of the products graph (the cut of
                     minibatch_infer); 1e-2 as GIN (GAT's compared steps
                     in deterministic mode, as gat_infer's forwards).
-                    PNA's gradients are held in pna_minibatch_f32
-                    instead: a max / min aggregator's gradient goes
-                    whole to the messages equal to the extreme, and bf16
-                    messages tie often, so a bf16 rounding that the two
-                    paths' sums take differently (and the kernel's
-                    atomic order from run to run) can break or make a
-                    tie and move a gradient entry whole (on an H100
-                    80GB HBM3 at 700 W a leaf's largest first-moment
-                    error read 0.0068 or 0.0274 of its largest entry
-                    from one run to the next);
+                    A max / min aggregator's gradient goes whole to the
+                    messages equal to the extreme, and bf16 messages tie
+                    often, so a bf16 rounding that the two paths' sums
+                    take differently can break or make a tie and move a
+                    gradient entry whole.  The kernel sums in one fixed
+                    order, so its step repeats bit for bit
+                    (``PNA_REPEATS`` steps from the seed: every loss,
+                    gradient and parameter bit-equal, ``_repeat_steps``)
+                    and the pair reads one number;
       pna_minibatch_f32  the same PNA step with float32 activations,
                     where such ties are rare: every check, each leaf's
-                    gradient included, at the same 1e-2 (on that card
-                    3.3e-5 to 1.7e-3 in 15 runs);
+                    gradient included, at the same 1e-2 (on an H100
+                    80GB HBM3 at 700 W 3.3e-5 to 1.7e-3 in 15 runs);
       nequip        NequIP ``nequip`` at the molecule shape on
                     ``mse_loss`` against seeded target energies, float32;
                     ``_f32_tol`` as GAT at Cora.
@@ -5687,7 +5825,7 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     # features, which need no gradient
     for name, cls, config, dtype, grads in (
             ("gat_minibatch", GAT, GAT_CFG, torch.bfloat16, True),
-            ("pna_minibatch", PNA, PNA_CFG, torch.bfloat16, False),
+            ("pna_minibatch", PNA, PNA_CFG, torch.bfloat16, PNA_BF16_GRADS),
             ("pna_minibatch_f32", PNA, PNA_CFG, torch.float32, True)):
         cfg = dataclasses.replace(big(config), dtype=dtype)
         run(name, gnn(cls, cfg), node_classification_loss, sg, 1e-2,
@@ -5696,6 +5834,13 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
             dtype=str(dtype).removeprefix("torch."), remat=True,
             nodes=n_sub, seeds=MINIBATCH_SEEDS,
             cut="the products graph sampled, as minibatch_infer")
+        if name == "pna_minibatch":
+            again = _repeat_steps(torch, gnn(cls, cfg),
+                                  node_classification_loss, sg, PNA_REPEATS)
+            out["cases"][name]["repeat"] = again
+            if not again["bit_equal"]:
+                problems.append(f"gnn_train {name}: the kernel step did not "
+                                f"repeat bit for bit: {again}")
 
     # NequIP at the molecule shape: 3 sums a layer, forward only
     mol = make_molecules(seed)
@@ -5720,6 +5865,90 @@ def phase_gnn_train(torch, seed: int, g, graph_info):
     if problems:
         fail("; ".join(problems))
     return out, launches
+
+
+# --------------------------------------------------------------------- #
+# The examples: the JAX package's examples' twins on the card
+# --------------------------------------------------------------------- #
+# each example, the kernels its run must launch
+EXAMPLES = (("torch_quickstart", ("compat_join_pairs",)),
+            ("torch_multi_query_service", ("compat_join_pairs",)),
+            ("torch_cybersec_c2_detection", ("compat_join_pairs",)),
+            ("torch_serve_recsys", ("embedding_bag", "segment_sum")))
+GNN_EXAMPLE = "torch_gnn_node_classification"
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module (examples are no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch):
+    """The five examples that are the JAX package's examples' twins, each
+    through its ``main`` on the card, its own assertions included.  The
+    GNN example (120 GAT steps) runs twice and must give the same loss,
+    bit for bit, at every printed step: its segment sums are the
+    kernel's fixed order, and its softmax denominators (``index_add_``,
+    float atomics) run under ``torch.use_deterministic_algorithms``, as
+    gat_infer's pair does.  The other four run once.  Each run's kernel
+    launches are counted (zeroed before, read after) and each must have
+    launched the kernels ``EXAMPLES`` names; returns (phase line, the
+    launches by kernel over the phase)."""
+    import warnings
+
+    out = {"phase": "examples", "cases": {}}
+    problems, total = [], Counter()
+    argv = ["--device", DEVICE]
+
+    def run(name, fn, want):
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(torch)
+        counts = _launch_counts()
+        total.update(counts)
+        missing = [k for k in want if not counts[k]]
+        if missing:
+            problems.append(f"example {name} launched no {missing}")
+        return res, {"s": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in counts.items() if v}}
+
+    gnn = _example(GNN_EXAMPLE)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for _ in range(2):
+                runs.append(run(GNN_EXAMPLE, lambda: gnn.main(argv),
+                                ("segment_sum",)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, info), (b, _) = runs
+    same = a["losses"] == b["losses"] and len(a["losses"]) == 6
+    out["cases"][GNN_EXAMPLE] = {
+        **info, "runs": 2, "losses": a["losses"],
+        "losses_again": b["losses"], "losses_bit_equal": same,
+        "accuracy": a["accuracy"], "baseline": a["baseline"]}
+    if not same:
+        problems.append(f"example {GNN_EXAMPLE}: two runs' losses differ: "
+                        f"{a['losses']} / {b['losses']}")
+    for name, want in EXAMPLES:
+        mod = _example(name)
+        res, info = run(name, lambda: mod.main(argv), want)
+        out["cases"][name] = {**info, **{k: v for k, v in res.items()
+                                         if k not in ("rows", "live")}}
+    _free(torch)
+    emit(out)
+    if problems:
+        fail("; ".join(problems))
+    return out, dict(total)
 
 
 # --------------------------------------------------------------------- #
@@ -6943,6 +7172,7 @@ def main(argv=None) -> int:
                                             graph_info)
     del graph
     _free(torch)
+    _, example_launches = phase_examples(torch)
     if DEVICE == "cuda" and torch.cuda.memory_allocated() >= 2**30:
         fail(f"{torch.cuda.memory_allocated()} bytes still allocated on the "
              "card before the LM phases")
@@ -6991,6 +7221,7 @@ def main(argv=None) -> int:
               launches_sjtree=sjtree_launches,
               launches_sjtree_by_slots={
                   str(k): v for k, v in sorted(sjtree_by_slots.items())},
+              launches_examples=example_launches["compat_join_pairs"],
               tolerance="equal"),
         entry("compat_mask", KERNEL_SOURCES["compat_join"], f"{cj}:279",
               mask_launches, masks, "l0_j1_window", also_replaces=f"{cj}:210",
@@ -7001,6 +7232,7 @@ def main(argv=None) -> int:
               bags, "wide_serve_bulk", launches_path="recsys_serve",
               launches_recsys_train=train_launches["embedding_bag"],
               launches_sharded_cells=sharded_launches["embedding_bag"],
+              launches_examples=example_launches["embedding_bag"],
               tolerance="rtol 1e-5, atol 1e-6; N(0,1) D = 32: rtol 1e-5 "
                         "+ 2 n 2^-24 sum|row| per element; integer D = 32: "
                         "equal"),
@@ -7014,8 +7246,11 @@ def main(argv=None) -> int:
               launches_gnn_train=gnn_train_launches,
               launches_embedding_bag_backward=train_launches["segment_sum"],
               launches_sharded_cells=sharded_launches["segment_sum"],
+              launches_examples=example_launches["segment_sum"],
               tolerance="bf16: rtol 1e-2 + 2 deg 2^-24 sum|msg| per element; "
-                        "float32 integer messages: equal"),
+                        "float32 integer messages: equal; every case's bits "
+                        "equal ref.segment_sum_ordered's (where it fits), a "
+                        "second call's and an order-keeping permutation's"),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}),

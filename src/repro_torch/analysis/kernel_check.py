@@ -15,14 +15,14 @@ the ogbn-products shape, Wide&Deep's serving batches):
 KC101  grid and cover: every grid extent lies in [1, limit] (x up to
        2^31 - 1; y and z up to 65,535) and the blocks cover every row
        and column exactly: ``nrt·at >= ca``, ``nt·tb >= cb``,
-       ``tiles·TN >= n``, ``n_cc·dc >= d``, ``blocks·groups·k_bags >=
-       n_bags``, and the accumulate grid holds every piece; a plan that
+       ``n_cc·dc >= d``, ``blocks·groups·k_bags >= n_bags``, a lane
+       group for every node and window, a digit for every key bit; a plan that
        refuses a shape the port's paths run is a finding too;
 KC102  Hopper's granules: ``tb`` a multiple of ``WIN`` (512) and of a
        warp, ``at`` of 16; block threads a multiple of 32 and at most
        1,024; ``vec`` divides the row bytes and the base alignment;
-       ``lr`` a power of two within the lane group; ``TN`` a power of
-       two within ``SR_TN_MAX`` (a row index is a byte);
+       ``lr`` a power of two within the lane group; the run length the
+       source's ``SR_RUN``;
 KC103  on-chip and workspace bounds: dynamic plus static shared memory
        within ``SMEM_LIMIT`` at every point (the proof behind the
        run-time ``assert`` in ``compat_join.kernel.plan``; a fired
@@ -105,7 +105,7 @@ GIN_E, GIN_N = 61_225_725, 2_449_029
 GNN_WIDTHS = (64, 376, 75)
 MINIBATCH_E, MINIBATCH_N = 168_960, 169_984
 NEQUIP_E, NEQUIP_N, NEQUIP_WIDTHS = 128 * 64, 128 * 30, (32, 96, 288)
-SEG_WIDE_N = 4_000_000             # past the on-chip tile counters
+SEG_WIDE_N = 4_000_000             # the uniform case over 4 M nodes
 WD_BATCHES = (512, 262_144)        # serve_p99, serve_bulk
 WD_TABLES = ((4_000_000, 1), (1_000_000, 32))
 WD_IDS_PER_BAG = 16
@@ -550,58 +550,49 @@ def _seg_point(sink, K, defines, path, e, n, d, elem, align,
         sink.add("KC101", "segment_reduce", sym, f"plan failed: {exc!r}", path)
         return None
     ve = p.vec // elem
+    per = K.THREADS // p.lr if p.lr else 0
     _grid_ok(sink, "segment_reduce", sym,
-             [(p.p_max, GRID_X_MAX), (p.n_cc, GRID_YZ_MAX)], path)
-    _grid_ok(sink, "segment_reduce", sym, [(p.grid_edges, GRID_X_MAX)],
+             [(p.grid_nodes, GRID_X_MAX), (p.n_cc, GRID_YZ_MAX),
+              (p.grid_starts, GRID_X_MAX), (p.grid_pieces, GRID_X_MAX)],
              path)
-    if p.tiles * p.tn < n or (p.tiles - 1) * p.tn >= n:
-        sink.add("KC101", "segment_reduce", sym,
-                 f"{p.tiles} tiles of {p.tn} rows do not cover {n} nodes "
-                 f"exactly", path)
+    if e:
+        _grid_ok(sink, "segment_reduce", sym,
+                 [(p.nb, GRID_X_MAX), (p.grid_runs, GRID_X_MAX)], path)
     if p.n_cc * p.dc < d:
         sink.add("KC101", "segment_reduce", sym,
                  f"{p.n_cc} chunks of {p.dc} columns do not cover D={d}",
                  path)
-    # every tile has max(1, ceil(c/CH)) <= 1 + floor(c/CH) pieces, and
-    # the floors sum to at most floor(E/CH): the grid holds them all
-    if p.p_max < p.tiles + e // p.ch:
+    # every node a lane group, every window of RUN sorted positions one,
+    # every edge a sort block's tile, every key (up to n) a digit a pass
+    if p.grid_nodes * K.THREADS < n or p.grid_runs * per < p.windows \
+            or p.windows * p.run < e or p.nb * p.sub * K.TILE < e \
+            or p.pieces * p.piece < e or p.grid_pieces * per < p.pieces \
+            or not 1 <= p.piece <= p.run \
+            or p.passes * K.BITS < n.bit_length():
         sink.add("KC101", "segment_reduce", sym,
-                 f"accumulate grid {p.p_max} < tiles + E/CH = "
-                 f"{p.tiles + e // p.ch} pieces", path)
-    if p.m_max < min(p.tiles, e // (p.ch + 1)):
-        sink.add("KC101", "segment_reduce", sym,
-                 f"{p.m_max} hub tiles' scratch for up to "
-                 f"{min(p.tiles, e // (p.ch + 1))}", path)
-    tn_max = defines.get("SR_TN_MAX", 256)
+                 f"grids do not cover the work: nodes {p.grid_nodes} x "
+                 f"{per} for {n}, windows {p.windows} of {p.run} and "
+                 f"pieces {p.pieces} for E={e}, sort blocks {p.nb} x "
+                 f"{p.sub} tiles, {p.passes} "
+                 f"passes of {K.BITS} bits for keys up to {n}", path)
+    run = defines.get("SR_RUN", K.RUN)
     if (p.vec < elem or (d * elem) % p.vec or align % p.vec
             or p.dc % ve or p.lr & (p.lr - 1) or not 1 <= p.lr <= 32
-            or p.lr * ve < p.dc or p.tn & (p.tn - 1)
-            or not 1 <= p.tn <= tn_max):
+            or p.lr * ve < p.dc or p.run != run
+            or K.THREADS % p.lr or not 1 <= p.sub <= K.SUB_MAX):
         sink.add("KC102", "segment_reduce", sym,
-                 f"granules vec={p.vec} dc={p.dc} lr={p.lr} tn={p.tn}: vec "
-                 f"must divide the row ({d * elem} B) and the alignment "
-                 f"({align}), lr be a power of two <= 32 covering dc, tn "
-                 f"a power of two <= SR_TN_MAX {tn_max}", path)
-    static = 4 * (2 * tn_max + 2)
-    if p.smem != (p.tn * p.dc + p.ch) * 4 \
-            or p.smem + static > K.SMEM_LIMIT \
-            or (p.priv and p.tiles * 4 > K.SMEM_LIMIT):
-        sink.add("KC103", "segment_reduce", sym,
-                 f"shared memory {p.smem} (+{static} static; counters "
-                 f"{p.tiles * 4 if p.priv else 0}) B against SMEM_LIMIT "
-                 f"{K.SMEM_LIMIT}", path)
-    for name, v in (("edge offsets (order)", e), ("tile offsets",
-                                                  p.tiles + 1),
-                    ("pieces", p.p_max), ("accumulator",
-                                          p.tn * p.dc + p.ch)):
+                 f"granules vec={p.vec} dc={p.dc} lr={p.lr} run={p.run} "
+                 f"sub={p.sub}: vec must divide the row ({d * elem} B) and "
+                 f"the alignment ({align}), lr be a power of two <= 32 "
+                 f"covering dc, run the source's SR_RUN {run}", path)
+    # the sorted positions, each run's end and the scratch rows are ints
+    for name, v in (("sorted positions", e + p.run), ("node starts", n + 1),
+                    ("scratch rows", 2 * p.windows),
+                    ("sort block tiles", p.nb * p.sub)):
         if v > INT_MAX:
             sink.add("KC103", "segment_reduce", sym,
                      f"{name} reach {v}, past the source's int", path)
-    sizes = {"ws_cnt": 4 * p.tiles, "ws_off": 4 * (p.tiles + 1),
-             "ws_poff": 4 * (p.tiles + 1), "ws_moff": 4 * p.tiles,
-             "ws_ptile": 4 * p.p_max, "ws_done": 4 * p.m_max * p.n_cc,
-             "ws_meta": 8, "ws_order": 4 * e, "ws_lrow": e,
-             "ws_scratch": 4 * p.m_max * p.tn * d}
+    sizes = K.workspace_sizes(e, n, d, p.passes, p.nb, p.windows)
     spans = sorted((getattr(p, k), getattr(p, k) + v, k)
                    for k, v in sizes.items())
     for (lo, hi, k), (lo2, _, k2) in zip(spans, spans[1:]):
@@ -609,10 +600,13 @@ def _seg_point(sink, K, defines, path, e, n, d, elem, align,
             sink.add("KC103", "segment_reduce", sym,
                      f"workspace {k} [{lo}, {hi}) overlaps {k2} at {lo2}",
                      path)
-    if spans[-1][1] > p.ws_bytes or any(lo % 16 for lo, _, _ in spans):
+    if spans[-1][1] > p.ws_bytes or any(lo % 16 for lo, _, _ in spans) \
+            or sizes["ws_scratch"] < 4 * 2 * p.windows * d \
+            or sizes["ws_hist"] < 4 * K.BINS * (p.nb + 1):
         sink.add("KC103", "segment_reduce", sym,
-                 f"workspace regions past ws_bytes {p.ws_bytes} or not "
-                 f"16-byte aligned", path)
+                 f"workspace regions past ws_bytes {p.ws_bytes}, not "
+                 f"16-byte aligned, or short of the scratch rows / digit "
+                 f"counts", path)
     return p
 
 
@@ -968,21 +962,20 @@ def device_limits(device=0) -> dict:
 def check_device_limits(limits: dict) -> list[Finding]:
     """The kernels' constants against a card's limits: a block's shared
     memory (``SMEM_LIMIT``) and the grids sized by the SM count
-    (``GRID_PRIV``, ``GRID_EDGES``, ``WAVE_BLOCKS``)."""
+    (``SORT_WAVE``, ``GRID_EDGES``, ``WAVE_BLOCKS``)."""
     cj = _kernel_module("compat_join")
     sr = _kernel_module("segment_reduce")
     eb = _kernel_module("embedding_bag")
     smem, sms = limits["smem_per_block_optin"], limits["sm_count"]
     findings = []
-    for name, have in (("compat_join.SMEM_LIMIT", cj.SMEM_LIMIT),
-                       ("segment_reduce.SMEM_LIMIT", sr.SMEM_LIMIT)):
+    for name, have in (("compat_join.SMEM_LIMIT", cj.SMEM_LIMIT),):
         if have != smem:
             findings.append(_finding(
                 "KC103", ERROR, name,
                 f"{name} = {have}, the card opts a block into {smem} "
                 f"bytes"))
     for name, have, want in (
-            ("segment_reduce.GRID_PRIV", sr.GRID_PRIV, sms),
+            ("segment_reduce.SORT_WAVE", sr.SORT_WAVE, 4 * sms),
             ("segment_reduce.GRID_EDGES", sr.GRID_EDGES, 16 * sms),
             ("embedding_bag.WAVE_BLOCKS", eb.WAVE_BLOCKS, 16 * sms)):
         if have != want:

@@ -1,10 +1,12 @@
 """Bind and launch the CUDA segment-sum kernels (``csrc/segment_reduce.cu``).
 
-``plan`` is the launch plan in plain Python (the CPU tests check it): node
-tile rows, column chunks, load width, piece size, grid bounds and the
-workspace layout.  ``segment_sum_cuda`` allocates the output and one
-workspace and makes one call into the library, which launches the
-bucket, scan and accumulate kernels on the current stream.  The library
+``plan`` is the launch plan in plain Python (the CPU tests check it):
+column chunks, load width, radix passes, sort blocks, grid bounds and
+the workspace layout.  ``segment_sum_cuda`` allocates the output and one
+workspace and makes one call into the library, which launches the sort
+(count, scan and place, once a pass), the node starts, the hub runs and
+the node sums on the current stream, in the order the source's header
+and ``ref.segment_sum_ordered`` state.  The library
 is built by ``repro_torch.kernels._build`` at first use, never at import.
 """
 
@@ -22,22 +24,25 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).parent / "csrc" / "segment_reduce.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256            # SR_THREADS in the source
-TN = 128                 # node rows per tile: a power of two <= 256 (a byte)
-DC_MAX = 128             # columns per chunk: a 64 KB accumulator at most
-CH = 4096                # bucket entries per piece (one block's work)
-SMEM_LIMIT = 232_448     # dynamic shared memory a block may have on an H100
-PRIV_TILES = 24_576      # most tiles whose counters a block keeps on chip
-GRID_EDGES = 132 * 16    # most blocks of the edge walks (grid-stride beyond)
-GRID_PRIV = 132          # blocks (of 1024 threads) of the walks counting on chip
+RUN = 1024               # SR_RUN in the source: edges a run of the order
+PIECE = 256              # sorted positions a node-sum lane group takes
+PIECE_NARROW = 8         # ... a lane, for groups of fewer than 8 lanes
+BITS = 8                 # SR_BITS in the source: key bits a radix pass
+BINS = 256               # SR_BINS in the source: digits a pass
+TILE = 4096              # SR_TILE in the source: edges a sort block ranks at once
+DC_MAX = 128             # columns per chunk: one pass of a lane group
+SUB_MAX = 16             # tiles a sort block takes, at most
+SORT_WAVE = 132 * 4      # sort blocks the plan aims for: four on each SM
+GRID_EDGES = 132 * 16    # most blocks of sr_starts (grid-stride beyond)
 VEC_BYTES = (16, 8, 4, 2)
 ALIGN = 256              # workspace arrays start on this many bytes
 
 
 PLAN_FIELDS = (
-    "e", "n", "d", "dtype", "vec", "tn", "dc", "n_cc", "lr", "ch", "tiles",
-    "p_max", "m_max", "smem", "priv", "grid_edges", "ws_cnt", "ws_off",
-    "ws_poff",
-    "ws_moff", "ws_ptile", "ws_done", "ws_meta", "ws_order", "ws_lrow",
+    "e", "n", "d", "dtype", "vec", "dc", "n_cc", "lr", "run", "passes",
+    "sub", "nb", "windows", "piece", "pieces", "grid_nodes", "grid_pieces",
+    "grid_runs", "grid_starts",
+    "ws_hist", "ws_key0", "ws_val0", "ws_key1", "ws_val1", "ws_start",
     "ws_scratch", "ws_bytes")      # the source's P_* enum, in its order
 
 
@@ -50,26 +55,26 @@ class Plan:
     d: int               # message columns
     dtype: int           # 0 = float32, 1 = bfloat16
     vec: int             # bytes per message load (16/8/4/2)
-    tn: int              # node rows per tile
     dc: int              # columns per chunk
     n_cc: int            # column chunks
     lr: int              # lanes per message row (a power of two <= 32)
-    ch: int              # edges per piece
-    tiles: int
-    p_max: int           # most pieces E and N allow: the accumulate grid
-    m_max: int           # most tiles with more than ch edges (hub tiles)
-    smem: int            # dynamic shared memory of the accumulate, bytes
-    priv: int            # 1: the edge walks count in shared memory
-    grid_edges: int      # blocks of the edge walks
-    ws_cnt: int          # workspace byte offsets, then its size
-    ws_off: int
-    ws_poff: int
-    ws_moff: int
-    ws_ptile: int
-    ws_done: int
-    ws_meta: int
-    ws_order: int
-    ws_lrow: int
+    run: int             # edges a run (RUN)
+    passes: int          # radix passes: keys reach n (a dropped id's key)
+    sub: int             # tiles of TILE edges a sort block takes
+    nb: int              # sort blocks
+    windows: int         # windows of RUN sorted positions (hub runs)
+    piece: int           # sorted positions a node-sum lane group takes
+    pieces: int          # pieces of ``piece`` positions (node sums)
+    grid_nodes: int      # blocks of sr_empty (THREADS nodes each)
+    grid_pieces: int     # blocks of sr_nodes (THREADS / lr pieces each)
+    grid_runs: int       # blocks of sr_runs (THREADS / lr windows each)
+    grid_starts: int     # blocks of sr_starts
+    ws_hist: int         # workspace byte offsets, then its size
+    ws_key0: int
+    ws_val0: int
+    ws_key1: int
+    ws_val1: int
+    ws_start: int
     ws_scratch: int
     ws_bytes: int
     c_args: object = field(compare=False, repr=False)
@@ -77,6 +82,19 @@ class Plan:
 
 def _pow2_at_least(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
+
+
+def workspace_sizes(e: int, n: int, d: int, passes: int, nb: int,
+                    windows: int) -> dict:
+    """Each workspace array's bytes: the sort's digit counts (and each
+    digit's total), its two key / edge-id buffers (one pass writes what
+    the next reads), the nodes' starts and two float32 scratch rows a
+    window (the hub runs that start there)."""
+    two = passes > 1
+    return {"ws_hist": 4 * BINS * (nb + 1), "ws_key0": 4 * e,
+            "ws_val0": 4 * e, "ws_key1": 4 * e * two,
+            "ws_val1": 4 * e * two, "ws_start": 4 * (n + 1),
+            "ws_scratch": 4 * 2 * windows * d}
 
 
 @functools.lru_cache(maxsize=256)
@@ -89,14 +107,16 @@ def plan(e: int, n: int, d: int, elem: int, align: int) -> Plan:
     Loads are the widest of 16/8/4/2 bytes that divide the base pointer
     and the row bytes (VE values each).  A column chunk is at most
     min(32 VE, 128) columns, so the lanes of one row (``lr``, rounded up
-    to a power of two) cover it in one pass and its TN x DC float32
-    accumulator takes at most 64 KB (beside the piece's CH sorted edge
-    ids); a wider row is cut into ``n_cc`` chunks.  At D = 1 a lane is a
-    row, 32 edges to a warp at a time.  With at most PRIV_TILES tiles the
-    edge walks keep their tile counters in shared memory, one chunk of
-    the edges per block, with blocks enough that a block's chunk holds
-    ~16 edges per tile (at most GRID_PRIV)."""
-    if d < 1 or n < 1 or e < 0:
+    to a power of two) cover it in one pass; a wider row is cut into
+    ``n_cc`` chunks.  At D = 1 a lane is a node.  The sort takes
+    ceil(bits(n) / BITS) passes (keys run to n, a dropped id's), its
+    blocks ``sub`` tiles each, so that there are about SORT_WAVE of
+    them; two scratch rows of D floats for each window of RUN edges
+    (its hub runs).  A lane group sums the nodes whose first edge lies in
+    one piece of PIECE sorted positions (PIECE_NARROW a lane for narrow
+    groups, which walk each edge with fewer lanes), so that groups get
+    about as many edges whatever the degrees."""
+    if d < 1 or n < 1 or e < 0 or e >= 2**31 - RUN or n >= 2**31 - 1:
         raise ValueError(f"segment_sum plan: E {e}, N {n}, D {d}")
     vec = next(v for v in VEC_BYTES
                if v >= elem and (d * elem) % v == 0 and align % v == 0)
@@ -104,25 +124,26 @@ def plan(e: int, n: int, d: int, elem: int, align: int) -> Plan:
     dc = min(d, 32 * ve, DC_MAX)
     n_cc = -(-d // dc)
     lr = _pow2_at_least(-(-dc // ve))
-    tiles = -(-n // TN)
-    p_max = tiles + e // CH
-    m_max = min(tiles, e // (CH + 1))
-    smem = (TN * dc + CH) * 4
-    priv = tiles <= PRIV_TILES
-    grid_edges = max(1, min(e // (16 * tiles), GRID_PRIV)) if priv else \
-        max(1, min(-(-e // THREADS), GRID_EDGES))
-    sizes = {"ws_cnt": 4 * tiles, "ws_off": 4 * (tiles + 1),
-             "ws_poff": 4 * (tiles + 1), "ws_moff": 4 * tiles,
-             "ws_ptile": 4 * p_max, "ws_done": 4 * m_max * n_cc,
-             "ws_meta": 8, "ws_order": 4 * e, "ws_lrow": e,
-             "ws_scratch": 4 * m_max * TN * d}
+    per = THREADS // lr
+    passes = max(1, -(-n.bit_length() // BITS))
+    sub = min(SUB_MAX, max(1, -(-e // (TILE * SORT_WAVE))))
+    nb = -(-e // (TILE * sub))
+    windows = -(-e // RUN)
+    piece = PIECE if lr >= 8 else PIECE_NARROW * lr
+    pieces = max(1, -(-e // piece))
+    head = dict(e=e, n=n, d=d, dtype=0 if elem == 4 else 1, vec=vec, dc=dc,
+                n_cc=n_cc, lr=lr, run=RUN, passes=passes, sub=sub, nb=nb,
+                windows=windows, piece=piece, pieces=pieces,
+                grid_nodes=-(-n // THREADS),
+                grid_pieces=-(-pieces // per),
+                grid_runs=-(-windows // per),
+                grid_starts=max(1, min(-(-(e + 1) // THREADS), GRID_EDGES)))
     offsets, at = {}, 0
-    for name, size in sizes.items():
+    for name, size in workspace_sizes(e, n, d, passes, nb,
+                                      windows).items():
         offsets[name] = at
         at += -(-size // ALIGN) * ALIGN
-    vals = (e, n, d, 0 if elem == 4 else 1, vec, TN, dc, n_cc, lr, CH,
-            tiles, p_max, m_max, smem, int(priv), grid_edges,
-            *offsets.values(), at)
+    vals = (*head.values(), *offsets.values(), at)
     return Plan(*vals, (ctypes.c_longlong * len(vals))(*vals))
 
 
@@ -141,7 +162,8 @@ def sum_output(msg, n_nodes: int):
 
 def segment_sum_cuda(dst, msg, n_nodes: int):
     """Launch the kernels: dst int32 CUDA [E], msg float32/bfloat16 CUDA
-    [E, D] -> [n_nodes, D] in msg's dtype, summed in float32.  Raises on
+    [E, D] -> [n_nodes, D] in msg's dtype, summed in float32 in the
+    order ``ref.segment_sum_ordered`` states.  Raises on
     what the kernels do not take or a launch error."""
     if dst.dtype != torch.int32 or dst.dim() != 1 or not dst.is_cuda:
         raise ValueError(f"dst: expected an int32 CUDA [E], got {dst.dtype} "
@@ -152,7 +174,8 @@ def segment_sum_cuda(dst, msg, n_nodes: int):
     e, d = msg.shape
     if dst.shape[0] != e:
         raise ValueError(f"dst [{dst.shape[0]}] and msg [{e}, {d}] differ")
-    if not 1 <= n_nodes < 2**31 or not 1 <= d < 2**31 or e >= 2**31:
+    if not 1 <= n_nodes < 2**31 - 1 or not 1 <= d < 2**31 \
+            or e >= 2**31 - RUN:
         raise ValueError(f"E {e} / n_nodes {n_nodes} / D {d} out of the "
                          "kernel's int32 range")
     dst, msg = dst.contiguous(), msg.contiguous()

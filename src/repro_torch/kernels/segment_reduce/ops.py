@@ -49,8 +49,9 @@ class SegmentSum(torch.autograd.Function):
 
 def segment_sum(dst, msg, n_nodes: int, backend: str | None = None):
     """``out[n] = sum of msg[e] over dst[e] == n`` -> [n_nodes, D] in
-    msg's dtype (accumulated in float32 by the kernel, in float64 by the
-    plain version); dst < 0 or >= n_nodes dropped.
+    msg's dtype (accumulated in float32 by the kernel, in the one order
+    ``ref.segment_sum_ordered`` states, and in float64 by the plain
+    version); dst < 0 or >= n_nodes dropped.
     ``backend`` None is the device default (the kernel on the card, the
     plain version on the CPU); "ref" is the plain version anywhere;
     "cuda" with CPU tensors raises.  Differentiable in ``msg`` both

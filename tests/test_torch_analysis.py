@@ -513,7 +513,7 @@ def test_kernel_contracts_prove_clean():
     findings, stats = KC.check_kernels(fast=True)
     assert [f.format() for f in findings] == []
     assert stats["n_launch_sites"] == 4
-    assert stats["n_global_kernels"] == 9
+    assert stats["n_global_kernels"] == 12
     assert set(KC.MODELED_LAUNCHES) == {
         n for _p, n, _l in KC.discover_launch_sites(str(KERNELS))}
 
@@ -570,7 +570,7 @@ def test_kc102_tile_not_a_multiple_of_the_window(monkeypatch):
 
 
 def test_kc102_segment_granules(monkeypatch):
-    monkeypatch.setattr(sr_k, "TN", 96)                  # not a power of 2
+    monkeypatch.setattr(sr_k, "RUN", 1000)               # not the SR_RUN
     got = KC.check_tiles_and_bounds(fast=True)
     assert any(f.rule == "KC102" and f.symbol.startswith("segment_sum")
                for f in got)
@@ -686,8 +686,7 @@ def test_device_limit_check():
     other = dict(h100, smem_per_block_optin=101_376, sm_count=108)
     got = {(f.rule, f.symbol) for f in KC.check_device_limits(other)}
     assert got == {("KC103", "compat_join.SMEM_LIMIT"),
-                   ("KC103", "segment_reduce.SMEM_LIMIT"),
-                   ("KC101", "segment_reduce.GRID_PRIV"),
+                   ("KC101", "segment_reduce.SORT_WAVE"),
                    ("KC101", "segment_reduce.GRID_EDGES"),
                    ("KC101", "embedding_bag.WAVE_BLOCKS")}
 

@@ -12,7 +12,8 @@ replica-sharded service (R logical replicas on the card) as the
 single-device service.  The embedding_bag and segment_sum kernels sum
 in float32 in another order than their plain versions: float32 within
 rtol 1e-5 / atol 1e-5, bfloat16 within one bfloat16 rounding (rtol 1e-2
-/ atol 1e-2).  The segment_sum edge cases (a hub node with 40% of the
+/ atol 1e-2); the segment_sum kernel also equals its own order in plain
+torch (``ref.segment_sum_ordered``) bit for bit, twice.  The segment_sum edge cases (a hub node with 40% of the
 edges, D from 1 to 65536, unaligned messages, no edges) use
 integer-valued float32 messages, which must sum exactly, and bf16
 messages held to one bf16 rounding plus the float32 summation bound.
@@ -457,6 +458,9 @@ def _sr_check(dst, msg, n):
     want = sr_ref.segment_sum(dst, msg, n)
     torch.cuda.synchronize()
     assert got.dtype == msg.dtype and got.shape == (n, msg.shape[1])
+    # the kernel's own order, bit for bit, and the same bits again
+    assert torch.equal(got, sr_ref.segment_sum_ordered(dst, msg, n))
+    assert torch.equal(got, sr_ops.segment_sum(dst, msg, n))
     if msg.dtype == torch.float32:
         assert torch.equal(got, want)
         return got
@@ -489,13 +493,14 @@ def _sr_msg(g, e, d, dtype, cuda, unaligned):
     (200_000, 5000, 3, 0.4, True),        # 12/6-byte rows: narrow loads
     (200_000, 5000, 64, 0.4, False),
     (100_000, 3000, 100, 0.4, True),      # msg[1:] of a GIN layer-1 width
-    (30_000, 300, 300, 0.5, False),       # column chunks of a hub tile
-    (300, 40, 65536, 0.0, False),         # past shared memory even at TN=1
-    (100_000, 3_200_000, 8, 0.4, False),  # tile counters past shared memory
+    (30_000, 300, 300, 0.5, False),       # column chunks of a hub
+    (300, 40, 65536, 0.0, False),         # 512 column chunks
+    (100_000, 3_200_000, 8, 0.4, False),  # 22-bit keys: three passes
 ])
 def test_segment_sum_kernel_cases(cuda, e, n, d, hub, unaligned, dtype):
-    """One node takes ``hub`` of the edges, so its tile is cut into pieces
-    (more than CH edges) and combined through the float32 scratch."""
+    """One node takes ``hub`` of the edges, so it has many runs of RUN
+    edges, summed in windows into the float32 scratch and combined in
+    run order."""
     from repro_torch.kernels.segment_reduce import kernel as sr_kernel
 
     g = torch.Generator(device=cuda).manual_seed(e + d)
@@ -505,10 +510,10 @@ def test_segment_sum_kernel_cases(cuda, e, n, d, hub, unaligned, dtype):
     msg = _sr_msg(g, e, d, dtype, cuda, unaligned)
     plan = sr_kernel.plan(e, n, d, msg.element_size(), msg.data_ptr() % 16)
     if hub:
-        assert int((dst == n // 3).sum()) > plan.ch
+        assert int((dst == n // 3).sum()) > plan.run
     if unaligned and d == 3:
         assert plan.vec == msg.element_size()
-    assert plan.priv == (n < 3_000_000)
+    assert plan.passes * 8 >= n.bit_length() > (plan.passes - 1) * 8
     got = _sr_check(dst, msg, n)
     if hub:
         assert bool(got[n // 3].float().abs().sum() > 0)

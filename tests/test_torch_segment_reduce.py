@@ -16,7 +16,7 @@ import torch
 from repro.kernels.segment_reduce import ops as ref_ops
 
 import _torch_util  # noqa: F401  (caps torch threads)
-from repro_torch.kernels.segment_reduce import kernel, ops
+from repro_torch.kernels.segment_reduce import kernel, ops, ref
 
 GRID = [
     (64, 16, 8, "float32"),
@@ -91,7 +91,7 @@ PLAN_SHAPES = [
     (30_000, 300, 300, 4, 0),
     (300, 40, 65536, 4, 0),
     (300, 40, 65536, 2, 0),
-    (100_000, 3_200_000, 8, 4, 0),          # tile counters off chip
+    (100_000, 3_200_000, 8, 4, 0),          # 22-bit keys: three passes
     (0, 1000, 64, 4, 0),                    # no edges
     (1, 1, 1, 4, 0),
 ]
@@ -109,57 +109,119 @@ def test_launch_plan(e, n, d, elem, align):
     assert p.dc % ve == 0 and p.dc <= kernel.DC_MAX and p.lr * ve >= p.dc
     assert p.lr & (p.lr - 1) == 0 and 1 <= p.lr <= 32
     assert (p.n_cc - 1) * p.dc < d <= p.n_cc * p.dc
-    # the tile accumulator fits in a block's shared memory
-    assert p.tn <= 256 and p.smem == (p.tn * p.dc + p.ch) * 4
-    assert p.smem <= kernel.SMEM_LIMIT
-    assert p.tiles * p.tn >= n > (p.tiles - 1) * p.tn
-    assert p.p_max == p.tiles + e // p.ch and p.dtype == (elem == 2)
-    # the edge walks' tile counters: in shared memory when they fit
-    assert p.priv == (p.tiles <= kernel.PRIV_TILES)
-    assert not p.priv or p.tiles * 4 <= kernel.SMEM_LIMIT
-    assert 1 <= p.grid_edges <= (kernel.GRID_PRIV if p.priv
-                                 else kernel.GRID_EDGES)
-    # workspace arrays: aligned, in order, without overlap
+    assert p.dtype == (elem == 2) and p.run == kernel.RUN
+    # the sort: a digit for every bit of the keys (dst, or n if dropped),
+    # a tile for every edge, about SORT_WAVE blocks
+    assert (p.passes - 1) * kernel.BITS < max(1, n.bit_length()) \
+        <= p.passes * kernel.BITS
+    assert 1 <= p.sub <= kernel.SUB_MAX
+    assert (p.nb - 1) * p.sub * kernel.TILE < e <= p.nb * p.sub * kernel.TILE \
+        or e == p.nb == 0
+    assert p.sub == kernel.SUB_MAX or p.nb <= kernel.SORT_WAVE
+    # a lane group for every node and every window of RUN positions
+    per = kernel.THREADS // p.lr
+    assert (p.grid_nodes - 1) * kernel.THREADS < n <= p.grid_nodes * kernel.THREADS
+    assert (p.windows - 1) * p.run < e <= p.windows * p.run or e == 0
+    assert p.grid_runs * per >= p.windows
+    assert p.piece == (kernel.PIECE if p.lr >= 8
+                       else kernel.PIECE_NARROW * p.lr) <= p.run
+    assert (p.pieces - 1) * p.piece < max(1, e) <= p.pieces * p.piece
+    assert (p.grid_pieces - 1) * per < p.pieces <= p.grid_pieces * per
+    assert 1 <= p.grid_starts <= kernel.GRID_EDGES
+    # workspace arrays: aligned, in order, without overlap, and as large
+    # as the sort's buffers, the node starts and two rows a window
     names = [f for f in kernel.PLAN_FIELDS if f.startswith("ws_")]
     offs = [getattr(p, f) for f in names]
     assert all(o % kernel.ALIGN == 0 for o in offs) and offs == sorted(offs)
-    assert p.ws_order - p.ws_meta >= 8 and p.ws_lrow - p.ws_order >= 4 * e
-    assert p.ws_scratch - p.ws_lrow >= e
-    assert p.ws_bytes - p.ws_scratch >= 4 * p.m_max * p.tn * d
+    sizes = kernel.workspace_sizes(e, n, d, p.passes, p.nb, p.windows)
+    assert all(b - a >= sizes[f] for f, a, b in zip(names, offs, offs[1:]))
+    assert sizes["ws_key0"] == sizes["ws_val0"] == 4 * e
+    assert sizes["ws_key1"] == (4 * e if p.passes > 1 else 0)
+    assert sizes["ws_start"] == 4 * (n + 1)
+    assert sizes["ws_scratch"] == 4 * 2 * p.windows * d
     assert list(p.c_args) == [getattr(p, f) for f in kernel.PLAN_FIELDS]
 
 
 def test_launch_plan_cuts_wide_rows_and_narrow_d1():
     wide = kernel.plan(300, 40, 65536, 4, 0)
-    assert 65536 * 4 > kernel.SMEM_LIMIT            # no TN fits a whole row
     assert wide.n_cc == 512 and wide.dc == 128 and wide.lr == 32
     d1 = kernel.plan(10_000, 500, 1, 4, 0)
-    assert (d1.vec, d1.dc, d1.n_cc, d1.lr) == (4, 1, 1, 1)   # 32 edges/warp
+    assert (d1.vec, d1.dc, d1.n_cc, d1.lr) == (4, 1, 1, 1)   # a node a lane
+    assert d1.grid_nodes == 2 and d1.passes == 2
+    assert (d1.piece, d1.pieces, d1.grid_pieces) == (8, 1250, 5)
     l1 = kernel.plan(61_225_725, 2_449_029, 100, 2, 0)
-    assert (l1.vec, l1.dc, l1.lr, l1.smem) == (8, 100, 32, 51_200 + 16_384)
-    assert l1.priv and l1.tiles * 4 == 76_536          # 19,134 counters
-    big = kernel.plan(1000, 3_200_000, 64, 2, 0)         # 25,000 tiles
-    assert not big.priv and big.grid_edges == 4
+    assert (l1.vec, l1.dc, l1.lr, l1.passes) == (8, 100, 32, 3)
+    assert (l1.sub, l1.nb, l1.windows) == (16, 935, 59_791)
+    big = kernel.plan(1000, 3_200_000, 64, 2, 0)         # 22-bit keys
+    assert big.passes == 3 and big.nb == 1 and big.sub == 1
+    assert kernel.plan(100, 255, 8, 4, 0).passes == 1     # keys up to 255
+    assert kernel.plan(100, 256, 8, 4, 0).passes == 2
     assert kernel.plan(100, 10, 100, 2, 8).vec == 8          # msg[1:]
     assert kernel.plan(100, 10, 3, 4, 12).vec == 4
+    with pytest.raises(ValueError):
+        kernel.plan(2**31 - kernel.RUN, 10, 8, 4, 0)
+
+
+def _hub_runs(dst, n, run):
+    """The hub runs the windows find (the source's sr_runs, in numpy):
+    {(start, end): scratch row}, and those sr_nodes reads back."""
+    key = np.sort(np.where((dst >= 0) & (dst < n), dst, n), kind="stable")
+    ev = int((key < n).sum())
+    start = np.searchsorted(key, np.arange(n + 1))
+    found = {}
+    for w in range(-(-ev // run)):
+        p0, p1 = w * run, min((w + 1) * run, ev)
+        a = key[p0]
+        sa, ta = start[a], start[a + 1]
+        if ta - sa > run:
+            p = sa + -(-(p0 - sa) // run) * run
+            if p < p1 and p < ta:
+                found[(p, min(p + run, ta))] = 2 * w
+        b = key[p1 - 1]
+        if b != a and start[b + 1] - start[b] > run:
+            found[(start[b], start[b] + run)] = 2 * w + 1
+    read = {}
+    for v in range(n):
+        s, t = start[v], start[v + 1]
+        if t - s > run:
+            for ps in range(s, t, run):
+                read[(ps, min(ps + run, t))] = \
+                    2 * (ps // run) + (ps == s and s % run != 0)
+    return found, read, start
 
 
 @pytest.mark.parametrize("hub", [0.0, 0.4, 0.99])
-@pytest.mark.parametrize("e,n", [(61_225_725, 2_449_029), (200_000, 5000),
-                                 (9000, 3)])
-def test_launch_plan_bounds_hold_for_any_counts(e, n, hub):
-    """The grids are sized from E and N alone: the pieces and hub tiles
-    that the scan makes from the actual tile counts never exceed them."""
+@pytest.mark.parametrize("e,n,run", [(200_000, 5000, kernel.RUN),
+                                     (9000, 3, kernel.RUN), (3000, 40, 16),
+                                     (500, 7, 4)])
+def test_launch_plan_bounds_hold_for_any_counts(e, n, run, hub):
+    """The grids and the scratch are sized from E and N alone: for any
+    counts the windows find every hub run exactly once, each run gets a
+    scratch row of its own below 2 x windows, and sr_nodes reads each
+    run from the row it was written to.  The sort's per-block counts
+    fit the digit table."""
     p = kernel.plan(e, n, 64, 2, 0)
-    rng = np.random.default_rng(e + n)
+    rng = np.random.default_rng(e + n + run)
     for _ in range(3):
-        tiles = rng.integers(0, p.tiles, e)
-        tiles[rng.random(e) < hub] = 0
-        tiles = tiles[rng.random(e) > 0.1]              # dropped edges
-        cnt = np.bincount(tiles, minlength=p.tiles)
-        pieces = np.maximum(1, -(-cnt // p.ch))
-        assert pieces.sum() <= p.p_max
-        assert (cnt > p.ch).sum() <= p.m_max
+        dst = rng.integers(0, n, e)
+        dst[rng.random(e) < hub] = n // 2
+        dst[rng.random(e) < 0.1] = -1                   # dropped edges
+        lens = rng.integers(run // 2, 3 * run, 3)        # hubs next to
+        for v, k in zip(rng.choice(n, 3), lens):         # hubs
+            dst[rng.choice(e, min(e, k), replace=False)] = v
+        found, read, start = _hub_runs(dst, n, run)
+        assert found == read
+        rows = list(found.values())
+        assert len(set(rows)) == len(rows)
+        assert all(0 <= r < 2 * -(-e // run) for r in rows)
+        if run == kernel.RUN:
+            assert max(rows, default=0) < 2 * p.windows
+        cnt = np.bincount(np.clip(dst, -1, n)[dst >= 0], minlength=n)
+        assert (cnt > run).sum() == len({
+            int(np.searchsorted(start, a, "right")) - 1 for a, _ in found})
+    blocks = -(-e // (p.sub * kernel.TILE))
+    assert blocks == p.nb and p.nb * kernel.BINS * 4 <= kernel.workspace_sizes(
+        e, n, 64, p.passes, p.nb, p.windows)["ws_hist"]
 
 
 def test_plan_fields_follow_the_source_enum():
@@ -172,3 +234,11 @@ def test_plan_fields_follow_the_source_enum():
     names = [x.strip() for x in body.split(",") if x.strip()]
     assert names[-1] == "P_COUNT"
     assert [x[2:].lower() for x in names[:-1]] == list(kernel.PLAN_FIELDS)
+    # and the constants the plan copies are the source's
+    defines = dict(re.findall(r"#define (SR_\w+) (\d+)", src))
+    for name, value in (("SR_THREADS", kernel.THREADS),
+                        ("SR_RUN", kernel.RUN), ("SR_BITS", kernel.BITS),
+                        ("SR_BINS", kernel.BINS), ("SR_TILE", kernel.TILE)):
+        assert int(defines[name]) == value, name
+    assert kernel.BINS == 1 << kernel.BITS
+    assert kernel.RUN == ref.RUN

@@ -1,0 +1,10 @@
+"""The share of the traced window in which no operation ran on the
+device, in %: 1 - the union of the device's activity intervals over the
+window's wall time (``torch.profiler``)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

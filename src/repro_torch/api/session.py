@@ -52,6 +52,7 @@ wide tick from its sources.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import NamedTuple
 
@@ -430,9 +431,20 @@ class StreamSession:
         subscription (queue or callback); returns ``{subscription:
         n_new_matches}`` for the served span.  ``on_tick(ServeInfo)``
         surfaces per-tick latency and overflow counts for external
-        monitoring.
+        monitoring: its ``latency_ms`` times dispatch and the barrier,
+        not the batch build nor delivery.  With a tracer, the conversion
+        of ``events`` is the span ``api.convert``, under the id of the
+        tick it feeds.
         """
+        tr = self.service.tracer
+        if tr is not None:
+            t_convert = time.perf_counter()
         edges = [to_data_edge(e, self.vocab) for e in events]
+        if tr is not None:
+            tr.record("api.convert",
+                      (time.perf_counter() - t_convert) * 1e3,
+                      start=t_convert, tick=tr.tick + 1,
+                      n_events=len(edges))
 
         def _on_match(qid, bindings, ets):
             sub = self._subs.get(qid)

@@ -9,7 +9,7 @@ the repo (``ServeInfo``, ``EngineStats``, ``SessionStatus``,
 
     ingest.*     frontier counters, watermark lag
     coalescer.*  AIMD batch decisions
-    tick.*       slot-tick latency, matches, overflow
+    tick.*       slot-tick latency (dispatch + barrier), matches, overflow
     share.*      prefix-forest shape
     ckpt.*       checkpoint publish latency, async stall
     mesh.*       per-replica load / pressure

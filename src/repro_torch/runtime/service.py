@@ -144,12 +144,15 @@ def _restore_config(man: dict, overrides: dict, step: int) -> dict:
 
 class ServeInfo(NamedTuple):
     """Per-tick record passed to ``serve_stream``'s ``on_tick`` callback
-    (after the state update and any checkpoint)."""
+    (after the state update and any checkpoint).  ``latency_ms`` (and the
+    ``tick.latency_ms`` histogram) times the dispatch of the forest and
+    every group and the barrier only: neither the batch build nor
+    delivery (the tracer's ``tick.batch`` and ``tick.deliver``)."""
 
     tick: int               # cumulative tick count (checkpoint step id)
     n_edges_ingested: int   # cumulative edges consumed after this tick
     chunk: int              # edges consumed by this tick
-    latency_ms: float       # barrier latency of this tick (all groups)
+    latency_ms: float       # dispatch + barrier of this tick (all groups)
     n_overflow: int = 0     # dropped appends this tick, summed over qids
                             # (shared-prefix drops attributed per tenant)
     n_shared_prefix_ticks: int = 0   # forest nodes advanced this tick
@@ -572,13 +575,17 @@ class ContinuousSearchService:
         """One production tick over ``chunk``: pow-2 padded batch, the
         forest and every group dispatched, ONE barrier, then one host
         copy of each group's result and match delivery.  Returns
-        (barrier latency ms, tick overflow, shared-prefix node count)."""
+        (latency ms, tick overflow, shared-prefix node count); the
+        latency times dispatch and the barrier, not the batch build nor
+        delivery."""
         tr = self.tracer
         if tr is not None:
             tr.next_tick()
         active = [g for g in self._iter_groups() if not g.idle]
-        batch = make_batch(**to_batches(chunk, quantize_pow2(len(chunk)))[0],
-                           device=self.device)
+        if tr is not None:
+            t_batch = time.perf_counter()
+        width = quantize_pow2(len(chunk))
+        batch = make_batch(**to_batches(chunk, width)[0], device=self.device)
         t0 = time.perf_counter()
         views, forest_nds = self._advance_forest(batch, watermark)
         if tr is None:
@@ -587,27 +594,34 @@ class ContinuousSearchService:
                        for g in active]
         else:
             # stage wall clocks from bare perf_counter reads reported
-            # post hoc: the tracer-off branch above reads no extra clock
-            tr.record("tick.forest",
-                      (time.perf_counter() - t0) * 1e3, n_nodes=len(views))
+            # post hoc: the tracer-off branch above reads no extra clock.
+            # marks[i] ends the forest (i = 0) or group i's dispatch and
+            # starts the next stage; the stages are recorded once the
+            # tick is delivered, so that no tracer work runs between
+            # them
+            marks = [time.perf_counter()]
             results = []
             for g in active:
-                ts = time.perf_counter()
                 results.append((g, self._advance_group(
                     g, batch, views, forest_nds, watermark)))
-                tr.record("tick.slot_dispatch",
-                          (time.perf_counter() - ts) * 1e3, gid=g.gid)
-            tb = time.perf_counter()
+                marks.append(time.perf_counter())
+            tb = marks[-1]
         self._barrier()
         t_end = time.perf_counter()
         lat_ms = (t_end - t0) * 1e3
         if tr is not None:
-            tr.record("tick.barrier", (t_end - tb) * 1e3)
+            tr.record("tick.barrier", (t_end - tb) * 1e3, start=tb)
             self._trace_tick_extras(tr)
         tick_overflow = 0
         n_matches = 0
+        delivered = []      # tracer on: each group's copy and match records
         for g, res in results:
+            if tr is not None:
+                t_copy = time.perf_counter()
             host = map_state(lambda x: x.cpu().numpy(), res)
+            if tr is not None:
+                t_rows = time.perf_counter()
+                n_group = n_matches
             for k, qid in self._result_slots(g):
                 n_new = int(host.n_new_matches[k])
                 tick_overflow += int(host.n_overflow[k])
@@ -617,11 +631,28 @@ class ContinuousSearchService:
                     valid = host.match_valid[k]
                     on_match(qid, host.match_bindings[k][valid],
                              host.match_ets[k][valid])
+            if tr is not None:
+                delivered.append((g.gid, res, n_matches - n_group, t_copy,
+                                  t_rows, time.perf_counter()))
         lat_ms, tick_overflow = self._agree_tick(lat_ms, tick_overflow)
         if tr is not None:
             tr.record("tick.deliver",
-                      (time.perf_counter() - t_end) * 1e3,
+                      (time.perf_counter() - t_end) * 1e3, start=t_end,
                       n_matches=n_matches)
+            for gid, res, n_group, t_copy, t_rows, t_done in delivered:
+                # bytes from the leaves' metadata: no device read
+                tr.record("deliver.copy", (t_rows - t_copy) * 1e3,
+                          start=t_copy, gid=gid,
+                          bytes=sum(x.nbytes for x in res))
+                tr.record("deliver.matches", (t_done - t_rows) * 1e3,
+                          start=t_rows, gid=gid, n_matches=n_group)
+            tr.record("tick.batch", (t0 - t_batch) * 1e3, start=t_batch,
+                      n_edges=len(chunk), width=width)
+            tr.record("tick.forest", (marks[0] - t0) * 1e3, start=t0,
+                      n_nodes=len(views))
+            for (g, _), ts, te in zip(results, marks, marks[1:]):
+                tr.record("tick.slot_dispatch", (te - ts) * 1e3, start=ts,
+                          gid=g.gid)
         self.n_ticks += 1
         self.n_edges_ingested += len(chunk)
         obs = self.obs
@@ -764,8 +795,10 @@ class ContinuousSearchService:
             if tr is not None:
                 # recorded after _tick_chunk so the spans carry this
                 # tick's correlation id (next_tick advances in there)
-                tr.record("ingest.pump", (t_rel - t_pump) * 1e3)
+                tr.record("ingest.pump", (t_rel - t_pump) * 1e3,
+                          start=t_pump)
                 tr.record("ingest.release", (t_done - t_rel) * 1e3,
+                          start=t_rel,
                           n_released=len(chunk))
             coalescer.record(lat_ms, frontier.buffered, tick_overflow)
             if self.obs is not None:
@@ -935,7 +968,8 @@ class ContinuousSearchService:
                 self.obs.histogram("ckpt.publish_ms").observe(ms)
                 self.obs.counter("ckpt.n_checkpoints").inc()
             if self.tracer is not None:
-                self.tracer.record("ckpt.publish", ms, step=int(step))
+                self.tracer.record("ckpt.publish", ms, start=t0,
+                                   step=int(step))
                 self.tracer.flush()
         return fut
 

@@ -11,6 +11,11 @@
 * On vs off: the same matches, no extra tick builds; the histogram sees
   every tick; the trace holds the serve loop's spans per tick and
   renders through ``python -m repro_torch.obs summarize``.
+* One clock: every span's ``start_ns`` is on ``torch.profiler``'s time
+  axis, so the profiler's ranges recorded inside a stage lie inside its
+  span; a ``StreamSession.serve`` tick is covered by its spans from the
+  batch build to the end of delivery, the result copy and the match
+  records nested in ``tick.deliver``.
 * Session health attribution (the ``ingest.*`` counters) survives
   checkpoint/restore.
 """
@@ -68,10 +73,12 @@ def _drive(obs_pkg):
 
 
 def _no_t0(trace: str) -> list:
+    """Records without their wall-clock stamps (``t0``, ``start_ns``)."""
     out = []
     for ln in trace.splitlines():
         d = json.loads(ln)
         d.pop("t0")
+        d.pop("start_ns", None)              # the port writes it alone
         if d["span"] == "ckpt.publish":
             d.pop("ms")                      # a measured wall time
         out.append(d)
@@ -90,6 +97,7 @@ def test_registry_tracer_exporter_equal_reference():
     assert P.to_prometheus(preg) == R.to_prometheus(rreg)
     assert preg.to_manifest() == rreg.to_manifest()
     assert _no_t0(ptrace) == _no_t0(rtrace)
+    assert all("start_ns" in json.loads(ln) for ln in ptrace.splitlines())
     lines = [ln for ln in ptrace.splitlines()
              if '"ckpt.publish"' not in ln]
     assert P.summarize_trace(lines) == R.summarize_trace(lines)
@@ -241,3 +249,149 @@ def test_checkpoint_publish_metrics_and_health_survive_restore(tmp_path):
     assert st2.n_late_dropped == 5 and st2.health == DEGRADED
     assert restored.metrics()["tick.n_ticks"] == m["tick.n_ticks"]
     assert "repro_ingest_n_late_dropped 5" in restored.prometheus()
+
+
+# --------------------------------------------------------------------- #
+# the tick's spans on the profiler's clock
+SPAN_NAMES = ("api.convert", "tick.batch", "tick.forest",
+              "tick.slot_dispatch", "tick.barrier", "tick.deliver",
+              "deliver.copy", "deliver.matches")
+
+
+def _session_trace(batch=32, n=320, share=True, during=None):
+    """Serve ``n`` REF edges through ``StreamSession.serve``, one call a
+    tick of ``batch`` edges, two tenants in one slot group, with a
+    memory tracer; ``during(sess)`` wraps the serving (a context
+    manager factory).  Returns the trace's records."""
+    import contextlib
+    import gc
+
+    from repro_torch.api import StreamSession
+
+    tracer, buf = P.memory_tracer()
+    sess = StreamSession(slots_per_group=2, tick_cache=SlotTickCache(),
+                         share_prefixes=share, tracer=tracer, device="cpu",
+                         **CAP)
+    for _ in range(2):
+        sess.register_query(port_query(_chain()), window=20)
+    edges = port_edges(_stream(n))
+    gc.collect()
+    gc.disable()            # no collection inside a tick's span gaps
+    try:
+        with (during or contextlib.nullcontext)():
+            for i in range(0, n, batch):
+                sess.serve(edges[i:i + batch], batch_size=batch,
+                           min_batch=batch, max_batch=batch,
+                           final_checkpoint=False)
+    finally:
+        gc.enable()
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()]
+
+
+def _end_ns(r) -> float:
+    return r["start_ns"] + r["ms"] * 1e6
+
+
+def test_spans_start_on_the_profilers_clock(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.api.session as session_mod
+    from repro_torch.api.session import Subscription
+
+    def probe(owner, attr, span):
+        orig = getattr(owner, attr)
+
+        def wrapped(*a, **k):
+            with record_function("probe:" + span):
+                return orig(*a, **k)
+        monkeypatch.setattr(owner, attr, wrapped)
+
+    # a function each stage calls, and only that stage
+    probe(session_mod, "to_data_edge", "api.convert")
+    probe(service_mod, "to_batches", "tick.batch")
+    probe(service_mod, "make_batch", "tick.batch")
+    probe(ContinuousSearchService, "_advance_forest", "tick.forest")
+    probe(ContinuousSearchService, "_advance_group", "tick.slot_dispatch")
+    probe(ContinuousSearchService, "_barrier", "tick.barrier")
+    probe(service_mod, "map_state", "deliver.copy")
+    probe(Subscription, "_deliver_rows", "deliver.matches")
+    holder = {}
+
+    def during():
+        holder["prof"] = profile(activities=[ProfilerActivity.CPU])
+        return holder["prof"]
+
+    recs = _session_trace(during=during)
+    prof = holder["prof"]
+    base = prof.profiler.kineto_results.trace_start_ns()
+    probes = MultiSet()
+    for e in prof.events():
+        if not e.name.startswith("probe:"):
+            continue
+        span = e.name.split(":", 1)[1]
+        lo = base + round(e.time_range.start * 1e3)
+        hi = base + round(e.time_range.end * 1e3)
+        # inside a span of its stage, within 0.1 ms
+        assert any(r["start_ns"] - 1e5 <= lo and hi <= _end_ns(r) + 1e5
+                   for r in recs if r["span"] == span), (span, lo, hi)
+        probes[span] += 1
+    assert set(probes) == {"api.convert", "tick.batch", "tick.forest",
+                           "tick.slot_dispatch", "tick.barrier",
+                           "deliver.copy", "deliver.matches"}
+    # spans of one stage in different ticks are disjoint: containment
+    # above placed each probe in one tick
+    for span in probes:
+        own = sorted((r["start_ns"], _end_ns(r)) for r in recs
+                     if r["span"] == span)
+        assert all(a[1] <= b[0] for a, b in zip(own, own[1:])), span
+
+
+def test_serve_tick_spans_cover_the_tick(monkeypatch):
+    sizes = []
+    orig = ContinuousSearchService._advance_group
+
+    def advance(self, g, *a, **k):
+        res = orig(self, g, *a, **k)
+        sizes.append((g.gid, sum(x.numel() * x.element_size()
+                                 for x in res)))
+        return res
+    monkeypatch.setattr(ContinuousSearchService, "_advance_group", advance)
+
+    recs = _session_trace()
+    assert {r["span"] for r in recs} >= set(SPAN_NAMES)
+    # t0, the reference's stamp, is each span's end on the same clock
+    assert all(abs(r["t0"] - _end_ns(r) / 1e9) <= 1e-3 for r in recs)
+    ticks = sorted({r["tick"] for r in recs})
+    assert ticks == list(range(1, 11))
+    copies = [r for r in recs if r["span"] == "deliver.copy"]
+    assert [(r["gid"], r["bytes"]) for r in copies] == sizes
+    n_matches = 0
+    for t in ticks:
+        tick = [r for r in recs if r["tick"] == t]
+        one = {r["span"]: r for r in tick}
+        conv, bat, dlv = one["api.convert"], one["tick.batch"], \
+            one["tick.deliver"]
+        assert conv["n_events"] == bat["n_edges"] == 32
+        assert bat["width"] == 32
+        assert _end_ns(conv) <= bat["start_ns"] + 1e3
+        # the copy and the match records lie inside delivery
+        nested = [r for r in tick
+                  if r["span"] in ("deliver.copy", "deliver.matches")]
+        assert len(nested) == 2
+        for r in nested:
+            assert dlv["start_ns"] - 1e3 <= r["start_ns"]
+            assert _end_ns(r) <= _end_ns(dlv) + 1e3
+        assert one["deliver.matches"]["n_matches"] == dlv["n_matches"]
+        n_matches += dlv["n_matches"]
+        # the spans cover 95% of the tick from the batch build's start
+        # to delivery's end
+        lo, hi = bat["start_ns"], _end_ns(dlv)
+        covered, last = 0.0, lo
+        for s, e in sorted((r["start_ns"], _end_ns(r)) for r in tick
+                           if r["ms"] > 0):
+            s, e = max(s, last), min(e, hi)
+            if e > s:
+                covered += e - s
+                last = e
+        assert covered >= 0.95 * (hi - lo), (t, covered / (hi - lo))
+    assert n_matches > 0
